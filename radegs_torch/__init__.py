@@ -6,9 +6,11 @@ so each module's JAX original is found by name:
 - ``core``     — cameras, SH colour, covariance / EWA projection and the
                  RaDe-GS ray-space plane / normal derivation.
 - ``ops``      — tile binning (a 64-bit ``[tile | depth]`` key sort), the
-                 forward blend (a hand-written CUDA kernel and its plain
-                 PyTorch version) and the rasterizer around them.
-- ``models``   — the Gaussian parameter store and its PLY I/O.
+                 forward and backward blend (hand-written CUDA kernels and
+                 their plain PyTorch versions), the differentiable rasterizer
+                 around them, SSIM / L1 losses and the KNN scale init.
+- ``models``   — the Gaussian parameter store, densification and PLY I/O.
+- ``train``    — configuration, Adam and the single-card training loop.
 - ``native``   — the nvcc build of the CUDA sources under ``csrc/``.
 - ``utils``    — device selection and a numpy-only PLY reader/writer.
 

@@ -41,22 +41,15 @@
 
 #include <cuda_runtime.h>
 
+#include "blend_common.cuh"
+
+using namespace radegs;
+
 namespace {
 
-constexpr int TILE = 16;
-constexpr int PX = TILE * TILE;  // pixels (threads) per tile
-constexpr int NF4 = 6;           // a feature row: 24 floats = 6 float4
-constexpr int BATCH = 256;       // instances staged per round
+constexpr int BATCH = 256;  // instances staged per round
 constexpr int N_OUT = 17;
-// the Python doubles of radegs_torch/ops/blend.py, rounded to float as
-// PyTorch rounds them when it compares a float32 tensor with them
-constexpr float ALPHA_EPS = (float)(1.0 / 255.0);
-constexpr float T_EPS = (float)1e-4;
-constexpr float MAX_ALPHA = (float)0.99;
 
-// feature row (FEAT_LAYOUT of radegs_tpu/ops/pallas_blend.py): 0:2 xy,
-// 2:5 conic (a, b, c), 5 opacity, 6:9 rgb, 9 ts, 10:12 ray_plane,
-// 12:15 view_point, 15:18 camera_plane x, 18:21 camera_plane y, 21:24 normal
 template <int G>
 __global__ void __launch_bounds__(G * PX)
 blend_fwd_kernel(const float4* __restrict__ feat, const int* __restrict__ gauss_id,
@@ -96,26 +89,18 @@ blend_fwd_kernel(const float4* __restrict__ feat, const int* __restrict__ gauss_
 
   for (int b0 = lo; b0 < hi; b0 += BATCH) {
     const int n = min(BATCH, hi - b0);
-    for (int i = threadIdx.x; i < n * NF4; i += G * PX) {
-      const int r = i / NF4;
-      rows[i] = feat[(size_t)gauss_id[b0 + r] * NF4 + (i - r * NF4)];
-    }
+    stage_rows(rows, feat, gauss_id, b0, n, threadIdx.x, G * PX);
     __syncthreads();
     const int r1 = min(end, b0 + n) - b0;
     for (int r = max(start, b0) - b0; r < r1 && !done; ++r) {
       const float* f = reinterpret_cast<const float*>(rows + r * NF4);
       const float dx = f[0] - pix_x;
       const float dy = f[1] - pix_y;
-      // the gate is rounded op by op (no FMA contraction), in the order of
-      // blend_forward_torch, so both take the same skip / stop decisions
-      const float power = __fsub_rn(
-          __fmul_rn(-0.5f, __fadd_rn(__fmul_rn(__fmul_rn(f[2], dx), dx),
-                                     __fmul_rn(__fmul_rn(f[4], dy), dy))),
-          __fmul_rn(__fmul_rn(f[3], dx), dy));
+      const float power = gate_power(f, dx, dy);
       if (power > 0.0f) continue;
-      const float alpha = fminf(MAX_ALPHA, f[5] * expf(power));
+      const float alpha = gate_alpha(f[5], expf(power));
       if (alpha < ALPHA_EPS) continue;
-      const float next_T = __fmul_rn(T, 1.0f - alpha);
+      const float next_T = gate_next_t(T, alpha);
       if (next_T < T_EPS) {  // this contributor is excluded; T stays
         done = true;
         break;

@@ -1,12 +1,16 @@
-"""The rasterizer, forward only (port of ``radegs_tpu/ops/rasterize.py``
-``rasterize``): tile binning, the forward blend, and the output
-normalisation of rasterize.py:602-641 (weight normalisation, distance ->
-depth through ``ln`` from the pixel rows, background compositing, normal
-normalisation), then untiling into images.
+"""The differentiable rasterizer (port of ``radegs_tpu/ops/rasterize.py``
+``rasterize``): tile binning on detached inputs, the blend as a
+``torch.autograd.Function`` (forward ``blend_forward``, backward
+``blend_backward``: the CUDA kernels on the card, their plain versions on
+the CPU), and the output normalisation of rasterize.py:602-641 (weight
+normalisation, distance -> depth through ``ln`` from the pixel rows,
+background compositing, normal normalisation) in plain PyTorch, so autograd
+supplies the corrections backward.cu:737-779 derives by hand.
 
-Gradients come with the training slice (a ``torch.autograd.Function`` whose
-backward is the port of the B2/B4 kernels); until then ``rasterize`` refuses
-inputs that require grad rather than silently detaching them.
+As in the JAX package's custom VJP, the Function's boundary is drawn around
+the raw accumulators only; ``med_pos`` is not differentiable, and the
+gradient of the dummy input ``xy_abs`` is the GOF densification side
+channel (rasterize.py:457-497).
 """
 
 from __future__ import annotations
@@ -21,7 +25,12 @@ from radegs_torch.ops.binning import (
     default_instance_budget,
     tile_grid,
 )
-from radegs_torch.ops.blend import blend_forward, tile_pixel_coords
+from radegs_torch.ops.blend import (
+    blend_backward,
+    blend_forward_packed,
+    tile_pixel_coords,
+    unpack_raw,
+)
 
 NORMALIZE_EPS = 1e-12
 
@@ -50,13 +59,42 @@ def blend_inputs(prep: PreprocessOut):
 
 def bin_prep(prep: PreprocessOut, width: int, height: int, instance_budget: int,
              max_per_tile: int, need_tile_gauss: bool) -> TileBinning:
-    """``bin_gaussians`` over a preprocess result, with the exact work cuts."""
+    """``bin_gaussians`` over a preprocess result, with the exact work cuts,
+    on detached inputs (the JAX package's stop_gradients, rasterize.py:567-583)."""
     return bin_gaussians(
-        prep.xy, prep.radius, prep.depth, prep.valid, width, height,
-        instance_budget=instance_budget, max_per_tile=max_per_tile,
-        conic=prep.conic, opacity=torch.where(prep.valid, prep.opacity, 0.0),
+        prep.xy.detach(), prep.radius.detach(), prep.depth.detach(), prep.valid,
+        width, height, instance_budget=instance_budget, max_per_tile=max_per_tile,
+        conic=prep.conic.detach(),
+        opacity=torch.where(prep.valid, prep.opacity.detach(), 0.0),
         need_tile_gauss=need_tile_gauss,
     )
+
+
+class BlendFunction(torch.autograd.Function):
+    """The blend between the nine per-Gaussian inputs (plus the dummy
+    ``xy_abs``) and the packed raw outputs (T, 17, 256) and ``med_pos``."""
+
+    @staticmethod
+    def forward(ctx, binning, width, height, tiles_per_block, xy, xy_abs, conic, opacity,
+                rgb, view_point, camera_plane, ray_plane, normal, ts):
+        inputs = (xy, conic, opacity, rgb, view_point, camera_plane, ray_plane, normal, ts)
+        out, med_pos = blend_forward_packed(binning, inputs, width, height, tiles_per_block)
+        ctx.binning = binning
+        ctx.geometry = (width, height, tiles_per_block)
+        ctx.save_for_backward(*inputs, out, med_pos)
+        ctx.mark_non_differentiable(med_pos)
+        return out, med_pos
+
+    @staticmethod
+    def backward(ctx, g_out, _g_med_pos):
+        # absent cotangents arrive as zeros (materialised by autograd)
+        *inputs, out, med_pos = ctx.saved_tensors
+        width, height, tiles_per_block = ctx.geometry
+        grads = blend_backward(ctx.binning, tuple(inputs), unpack_raw(out, med_pos),
+                               unpack_raw(g_out, None), width, height, tiles_per_block)
+        return (None, None, None, None, grads["xy"], grads["xy_abs"], grads["conic"],
+                grads["opacity"], grads["rgb"], grads["view_point"], grads["camera_plane"],
+                grads["ray_plane"], grads["normal"], grads["ts"])
 
 
 def normalize(raw, camera, bg):
@@ -102,22 +140,18 @@ def rasterize(
     max_per_tile: int = 512,
     instance_budget: int | None = None,
     tiles_per_block: int = 2,
+    xy_abs=None,
     events: list | None = None,
 ):
-    """Binning + forward blend + output normalisation. Returns the render()
-    dict of gaussian_renderer/__init__.py:85-95 (channels-first images) plus
+    """Binning + blend + output normalisation. Returns the render() dict of
+    gaussian_renderer/__init__.py:85-95 (channels-first images) plus
     ``radii``, ``visibility_filter`` and the ``binning`` diagnostics.
 
-    ``tiles_per_block``: tiles per CUDA block of the blend kernel (1 or 2).
+    ``tiles_per_block``: tiles per CUDA block of the blend kernels (1 or 2).
+    ``xy_abs``: optional (P, 2) zeros; its gradient is the GOF absolute
+    screen-gradient densification statistic.
     ``events``: a list that receives (stage, torch.cuda.Event) after the
     binning, blend and normalisation stages (CUDA only), for stage timing."""
-    fields = [getattr(prep, k) for k in ("xy", "conic", "opacity", "rgb", "view_point",
-                                         "camera_plane", "ray_plane", "normal", "ts")]
-    if any(t.requires_grad for t in fields + [bg]):
-        raise RuntimeError(
-            "rasterize is forward-only in this port: an input requires grad, and the "
-            "backward blend kernels are not ported yet (render under torch.no_grad(), "
-            "or detach the inputs)")
     W, H = camera.width, camera.height
     on_cpu = prep.xy.device.type == "cpu"
 
@@ -127,7 +161,14 @@ def rasterize(
         binning = bin_prep(prep, W, H, instance_budget, max_per_tile,
                            need_tile_gauss=on_cpu)
     mark(events, "binning")
-    raw = blend_forward(binning, blend_inputs(prep), W, H, tiles_per_block=tiles_per_block)
+    if xy_abs is None:
+        xy_abs = torch.zeros_like(prep.xy)
+    xy, conic, opacity, rgb, view_point, camera_plane, ray_plane, normal, ts = \
+        blend_inputs(prep)
+    out, med_pos = BlendFunction.apply(binning, W, H, tiles_per_block, xy, xy_abs, conic,
+                                       opacity, rgb, view_point, camera_plane, ray_plane,
+                                       normal, ts)
+    raw = unpack_raw(out, med_pos)
     mark(events, "blend")
     out = normalize(raw, camera, bg)
     mark(events, "normalize")

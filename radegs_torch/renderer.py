@@ -54,11 +54,19 @@ def render(
     tiles_per_block: int = 2,
     device=None,
     events: list | None = None,
+    xy_offset=None,
+    xy_abs=None,
 ):
     """Render a view on ``device`` (default ``cuda``; the state must already
     live there). Always uses the fused filtered scales and opacity
     (gaussian_renderer/__init__.py:63) and SH colour at the state's active
-    degree. ``bg`` is a (3,) background colour.
+    degree. ``bg`` is a (3,) background colour. Differentiable w.r.t. the
+    state's parameters.
+
+    ``xy_offset``/``xy_abs``: optional (C, 2) zero tensors; their gradients
+    are the screen-space mean gradients (pixel units) and the GOF absolute
+    gradient statistic — the reference's means2D .grad side channel
+    (gaussian_renderer/__init__.py:29-33).
 
     ``events``: a list that receives (stage, torch.cuda.Event) after the
     preprocess, binning, blend and normalisation stages (CUDA only)."""
@@ -66,12 +74,14 @@ def render(
     bg = torch.as_tensor(bg, dtype=torch.float32, device=state.device)
     mark(events, "start")
     prep = prepare(state, camera, kernel_size, scaling_modifier)
+    if xy_offset is not None:
+        prep = prep.replace(xy=prep.xy + xy_offset)
     mark(events, "preprocess")
     if instance_budget is None:
         instance_budget = default_instance_budget(state.capacity)
     return rasterize(prep, camera, bg, max_per_tile=max_per_tile,
                      instance_budget=instance_budget, tiles_per_block=tiles_per_block,
-                     events=events)
+                     xy_abs=xy_abs, events=events)
 
 
 def mark_visible(state: GaussianState, camera, device=None):

@@ -64,8 +64,13 @@ def test_rasterize_refuses_inputs_that_require_grad():
                                  np.full((C, 3), -2.0), np.tile([1.0, 0, 0, 0], (C, 1)),
                                  np.zeros((C, 1)), np.ones(C, bool), np.zeros((C, 1)), 3,
                                  device="cpu")
+    # the forward-only guard is gone since the backward blend exists: inputs
+    # that require grad are differentiated, not refused or silently detached
     state.params.xyz.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        render(state, cam, [0, 0, 0], device="cpu")
+    out = render(state, cam, [0, 0, 0], device="cpu")
+    out["render"].sum().backward()
+    assert state.params.xyz.grad is not None
+    assert torch.isfinite(state.params.xyz.grad).all() and state.params.xyz.grad.abs().sum() > 0
     with torch.no_grad():
-        assert torch.isfinite(render(state, cam, [0, 0, 0], device="cpu")["render"]).all()
+        ref = render(state, cam, [0, 0, 0], device="cpu")["render"]
+    assert torch.equal(ref, out["render"].detach())
