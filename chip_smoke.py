@@ -42,6 +42,45 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
    events, host ms per iteration, peak memory; the backward kernel alone at
    the dense view 0.
 
+7. The mesh path at full width, all on the card (launch counts set to 0
+   before 7b and read after 7e: the mesh path).
+   a. The integrate kernels against their plain versions on both parity
+      scenes (radius-only binning, the inverse ray-space covariance): B5
+      (``integrate_image``) and B6 (``integrate_points``, ~20k query points:
+      near the splats, in the frustum, outside the image, behind the
+      camera). The float rows and ``alpha_integrated`` within abs 1e-4, the
+      SDF within 1e-5 x the max depth, ``mid_*`` and the median depth equal
+      where the median contributor is the same; each kernel bit-identical
+      from run to run.
+   b. TSDF at converged scale: ``extract_mesh_tsdf`` of phase 4's 1.2M-splat
+      scene over the 8 orbit views (voxel 0.004, ``max_resolution`` 768),
+      written with ``write_mesh``; seconds of depth maps, block marking,
+      fusion and meshing. Fails unless > 10k faces, the median vertex
+      distance to the nearer surface of the scene (sphere r = 1.3, plane
+      y = -1.4, each widened by 2 sigma of its noise: opaque splats present
+      the noise's outer envelope) is below 0.1, and ``blend_fwd`` ran once
+      per view.
+   c. Marching Tetrahedra: ``extract_mesh_tetrahedra`` of a 50k-splat surface
+      scene (``surface_points(50_000)``, KNN scales, opacity 0.8; cut from
+      1.2M because scipy's host Delaunay dominates), 8 views,
+      ``n_binary_steps=8``, ``decimate="auto"``; seeds, Delaunay seconds,
+      cells, crossing edges, faces, the kernels' ms per SDF pass. Fails
+      unless the geometric check of 7b holds, ``integrate_image`` ran once
+      per view and ``integrate_points`` at least 9 x 8 times.
+   d. The kernels alone at the dense view 0 (radius-only binning, budget from
+      the measured demand): B5 20 launches, B6 20 launches over 1M jittered
+      surface points; each plain version once (B5 on the full view, B6 on a
+      seeded 16k-point subset) and each kernel's bound. The 1M launch must
+      equal the subset's launch bitwise on the subset, with tiles of more
+      than 256 points and subset points in their later work items.
+   e. The witness of the geometric checks: the 50k scene of 7c without its
+      noise (capacity 2^18, so the default render budget covers the demand).
+      TSDF and tetra as in 7b / 7c, each held to the noise-free surfaces:
+      median vertex distance below 0.1 and below 3 splat sigmas of the
+      nearer surface. Then ``extract_mesh_unbounded`` (resolution 256;
+      median distance below 0.1) and ``cull_mesh`` + ``post_process_mesh``
+      of the tetra mesh.
+
 ``python3 chip_smoke.py --profile`` instead runs the setup and a
 torch.profiler pass over both scenes' serving and over 5 training
 iterations of the 100k scene (device time by operation, busy share).
@@ -53,6 +92,7 @@ JSON object with a ``kernels`` list, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -87,7 +127,29 @@ OPS_WALKED, OPS_BLENDED = 19, 42
 # normal 3, and 25 adds into the pixel sums); the segment sum adds 25 per
 # instance
 OPS_BWD_WALKED, OPS_BWD_BLENDED, OPS_BWD_SEGMENT = 19, 125, 25
+# FP32 operations of the integrate kernels, counted the same way. Per walked
+# pair, the 5 sub-pixel samples' gate: 2 deltas, 9 for the conic form, the
+# power test = 12 each, 60; a sample whose power test passes 10 more (~4 for
+# expf, the opacity product, the 0.99 clamp, the 1/255 test, 1 - alpha, the
+# T product, the 1e-4 test). integrate_image.cu: a sample that takes the
+# contributor 5 more (plane depth 4, max 1), a centre sample that does 11
+# (weight 1, colour 6, alpha 1, depth sum 2, median test 1).
+# integrate_points.cu: a used pair 37 (deltas 2, t_at 4, the ill-conditioned
+# test and dz 3, the quadratic form 12 products + 5 sums + 2 scalings, ~4
+# for expf, opacity product, clamp, the plane test 2), an included pair 5
+# (the 1/255 test, opacity sum 2, transmittance 2)
+OPS_INT_PAIR, OPS_INT_POWER = 60, 10
+OPS_IMG_TAKEN, OPS_IMG_CENTRE = 5, 11
+OPS_PT_USED, OPS_PT_INC = 37, 5
 ABS_TOL, MED_POS_TOL = 1e-4, 1e-4
+SDF_REL_TOL = 1e-5  # of the max depth
+MESH_VIEWS_DIST_TOL = 0.1  # median vertex distance to the scene's surfaces
+SHELL_BAND = (0.1, 0.04)  # 2 sigma of surface_points' noise: sphere, plane
+# the witness scene (noise-free surfaces): median vertex distance to them in
+# splat sigmas of the nearer surface
+CLEAN_SIGMA_TOL = 3.0
+TETRA_N = 50_000
+WITNESS_CAPACITY = 1 << 18  # its default render budget (2^21) covers the demand
 BWD_REL_TOL = 1e-4  # of max |plain| per gradient field
 TRAIN_ITERS = 100
 DENSIFY_LOG = (1, 39, 40, 41, 59, 60, 61, 79, 80, 81, TRAIN_ITERS)
@@ -118,15 +180,16 @@ def orbit_cameras(n, device):
     return cams
 
 
-def surface_points(n, rng):
-    """bench.py _surface_points: a noisy sphere and a ground plane."""
+def surface_points(n, rng, noise=1.0):
+    """bench.py _surface_points: a noisy sphere and a ground plane (radial
+    noise sigma 0.05 on the sphere, 0.02 on the plane, times ``noise``)."""
     n_sphere = (2 * n) // 3
     d = rng.normal(size=(n_sphere, 3))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    sphere = d * (1.3 + 0.05 * rng.normal(size=(n_sphere, 1)))
+    sphere = d * (1.3 + noise * 0.05 * rng.normal(size=(n_sphere, 1)))
     n_plane = n - n_sphere
     plane = np.stack([rng.uniform(-3, 3, n_plane),
-                      np.full(n_plane, -1.4) + 0.02 * rng.normal(size=n_plane),
+                      np.full(n_plane, -1.4) + noise * 0.02 * rng.normal(size=n_plane),
                       rng.uniform(-3, 3, n_plane)], axis=1)
     return np.concatenate([sphere, plane], 0).astype(np.float32)
 
@@ -145,6 +208,12 @@ def scene_ply(path, scene, seed=0):
     if scene == "dense":
         pts = surface_points(DENSE_N, rng)
         cap, shrink, opacity = DENSE_CAPACITY, 1.0, 0.8
+    elif scene == "surface50k":
+        pts = surface_points(TETRA_N, rng)
+        cap, shrink, opacity = 1 << 16, 1.0, 0.8
+    elif scene == "clean50k":
+        pts = surface_points(TETRA_N, rng, noise=0.0)
+        cap, shrink, opacity = WITNESS_CAPACITY, 1.0, 0.8
     else:
         pts = (rng.normal(size=(N_GAUSS, 3)) * 1.2).astype(np.float32)
         cap, shrink, opacity = CAPACITY, 0.22, 0.1
@@ -686,6 +755,506 @@ def training(res):
     return results
 
 
+# ------------------------------------------------------------ phase 7 ----
+
+
+def surface_distance(verts, band=(0.0, 0.0)):
+    """Distance of each vertex to the nearer surface of ``surface_points``:
+    the sphere r = 1.3 and the plane y = -1.4, each widened to a shell of
+    half-width ``band`` (sphere, plane). Returns (distance, the share of
+    vertices nearer the sphere, their median radius, the others' median y)."""
+    v = np.asarray(verts, np.float64)
+    r = np.linalg.norm(v, axis=1)
+    ds, dp = np.abs(r - 1.3), np.abs(v[:, 1] + 1.4)
+    near_s = ds < dp
+    d = np.minimum(np.maximum(ds - band[0], 0.0), np.maximum(dp - band[1], 0.0))
+    return (d, float(near_s.mean()), float(np.median(r[near_s])) if near_s.any() else 0.0,
+            float(np.median(v[~near_s, 1])) if (~near_s).any() else 0.0)
+
+
+def mesh_geometry(verts, label):
+    """The geometric check of phases 7b and 7c: the median distance of the
+    vertices to the scene's surfaces. The splat centres lie on NOISY
+    surfaces (bench.py: radial noise sigma 0.05 on the sphere, 0.02 on the
+    plane) and opaque splats present the OUTER envelope of that noise, so
+    the check measures to the 2-sigma shells (r = 1.3 +- 0.1, y = -1.4 +-
+    0.04); the distance to the noise-free surfaces is reported beside it."""
+    d, share, r_med, y_med = surface_distance(verts, SHELL_BAND)
+    d0 = surface_distance(verts)[0]
+    dist, dist0 = float(np.median(d)), float(np.median(d0))
+    log(f"  {label} geometry: median distance to the 2-sigma shells {dist:.5f}, to the "
+        f"noise-free sphere / plane {dist0:.5f}; {share:.4f} of the vertices nearer the "
+        f"sphere (median radius {r_med:.5f}), the rest median y {y_med:.5f}")
+    check(dist < MESH_VIEWS_DIST_TOL, f"{label} mesh median distance {dist}")
+    return dist, dist0
+
+
+def frustum_points(cam, n_in, n_out, n_behind, rng):
+    """World points in the camera's frustum (random pixel, depth 1.5-7),
+    beside the image (pixel coordinates up to half a width outside), and
+    behind the camera."""
+    W, H = cam.width, cam.height
+    fx, fy = float(cam.focal_x), float(cam.focal_y)
+    u = np.concatenate([rng.uniform(0, W, n_in), rng.uniform(-0.5 * W, 0, n_out),
+                        rng.uniform(0, W, n_behind)])
+    v = np.concatenate([rng.uniform(0, H, n_in), rng.uniform(0, H, n_out),
+                        rng.uniform(0, H, n_behind)])
+    d = np.concatenate([rng.uniform(1.5, 7, n_in + n_out), -rng.uniform(0.5, 3, n_behind)])
+    p_view = np.stack([(u - W / 2) / fx * d, (v - H / 2) / fy * d, d], 1)
+    R, T = cam.R.cpu().numpy().astype(np.float64), cam.T.cpu().numpy().astype(np.float64)
+    return ((p_view - T) @ R.T).astype(np.float32)  # p_view = R^T p + T
+
+
+def integrate_bound_ms(kind, P, n_inst, T, n_points, work):
+    """Least time for an integrate kernel's work on these inputs: features,
+    gauss_id and tile ranges read once, the outputs written once (B5: 13
+    rows + the median index per pixel; B6: the points' xy and depth read,
+    one alpha written), and the counted walk at FP32 peak."""
+    if kind == "image":
+        n_bytes = P * 12 * 4 + n_inst * 4 + T * 8 + T * 14 * 256 * 4
+        ops = (OPS_INT_PAIR * work["n_pairs"] + OPS_INT_POWER * work["n_power"]
+               + OPS_IMG_TAKEN * work["n_taken"] + OPS_IMG_CENTRE * work["n_centre"])
+    else:
+        n_bytes = P * 16 * 4 + n_inst * 4 + T * 8 + n_points * 16
+        ops = (OPS_INT_PAIR * work["n_pairs"] + OPS_INT_POWER * work["n_power"]
+               + OPS_PT_USED * work["n_used"] + OPS_PT_INC * work["n_inc"])
+    ops = int(ops)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), n_bytes, ops
+
+
+def integrate_demand(state, cameras):
+    """The largest radius-only instance demand over the views (binned with a
+    budget of 1: the count is taken before the budget cut)."""
+    from radegs_torch.ops.binning import bin_gaussians
+    from radegs_torch.renderer import prepare
+
+    need = 0
+    with torch.no_grad():
+        for cam in cameras:
+            prep = prepare(state, cam, 0.1)
+            b = bin_gaussians(prep.xy, prep.radius, prep.depth, prep.valid, WIDTH, HEIGHT,
+                              instance_budget=1, max_per_tile=8192)
+            need = max(need, int(b.n_instances))
+    return need
+
+
+def compare_image(rows_k, med_k, rows_p, med_p):
+    """Max abs error over the float rows 0:8, the share of pixels whose
+    median contributor differs, and the median depth / mid_* error where it
+    is the same."""
+    err = (rows_k[:, :8] - rows_p[:, :8]).abs()
+    same = med_k == med_p
+    med_err = max((rows_k[:, 4] - rows_p[:, 4]).abs()[same].max().item(),
+                  (rows_k[:, 8:] - rows_p[:, 8:]).abs().amax(1)[same].max().item())
+    return err[:, [0, 1, 2, 3, 5, 6, 7]].max().item(), 1.0 - same.float().mean().item(), med_err
+
+
+def integrate_parity(W=256, H=256, target=(0, 0, 0)):
+    """Phase 7a: B5 and B6 against their plain versions on the parity scene
+    of phase 2 (with the inverse ray-space covariance, radius-only binning)."""
+    from radegs_torch.core.camera import Camera
+    from radegs_torch.core.projection import preprocess_gaussians
+    from radegs_torch.ops import integrate as ig
+    from radegs_torch.ops.binning import bin_gaussians
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(3)
+    P = 2000
+    cam = Camera.look_at([0, 0.3, -4.0], target, [0, 1, 0], 0.9, 0.9, W, H, device=dev)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    centres = rng.normal(size=(P, 3)) * 0.9
+    prep = preprocess_gaussians(
+        t(centres), t(rng.uniform(0.02, 0.25, (P, 3))),
+        t(np.tile([1.0, 0, 0, 0], (P, 1))), t(rng.uniform(0.05, 0.95, (P, 1))),
+        t(rng.uniform(0, 1, (P, 1, 3))), sh_degree=0, camera=cam, kernel_size=0.1,
+        compute_invraycov=True)
+    binning = bin_gaussians(prep.xy, prep.radius, prep.depth, prep.valid, W, H,
+                            instance_budget=1 << 16, max_per_tile=2048, need_tile_gauss=True)
+    feat = ig.image_features(prep)
+    r1, m1 = ig.integrate_image_rows(binning, feat, W, H)
+    r2, m2 = ig.integrate_image_rows(binning, feat, W, H)
+    rp, mp = ig.integrate_image_torch(binning.tile_gauss, feat, W, H)
+    torch.cuda.synchronize()
+    check(torch.equal(r1, r2) and torch.equal(m1, m2), "integrate_image differs between runs")
+    img_err, flips, med_err = compare_image(r1, m1, rp, mp)
+
+    # ~20k query points: near the splats, in the frustum, beside the image,
+    # behind the camera
+    pts_np = np.concatenate([
+        (centres[rng.integers(0, P, 8000)] + rng.normal(size=(8000, 3)) * 0.05),
+        frustum_points(cam, 8000, 2000, 2000, rng)]).astype(np.float32)
+    pts = ig.project_points(torch.from_numpy(pts_np).to(dev), cam)
+    pfeat = ig.point_features(prep)
+    a1 = ig.integrate_points_alpha(binning, pfeat, pts, W, H)
+    a2 = ig.integrate_points_alpha(binning, pfeat, pts, W, H)
+    mid_k = {k: r1[:, 8 + j] for j, k in enumerate(ig.MID_KEYS)}
+    mid_p = {k: rp[:, 8 + j] for j, k in enumerate(ig.MID_KEYS)}
+    ap, sdf_p = ig.integrate_points_torch(binning.tile_gauss, pfeat, pts, mid_p, (W + 15) // 16)
+    sdf_k = ig.point_sdf_from_mid(pts, mid_k, (W + 15) // 16)
+    torch.cuda.synchronize()
+    check(torch.equal(a1, a2), "integrate_points differs between runs")
+    a_err = (a1 - ap).abs().max().item()
+    # the SDF where the point's pixel has the same median contributor
+    within = (pts.pixel[:, 1] % 16) * 16 + (pts.pixel[:, 0] % 16)
+    same_px = (m1 == mp)[pts.tile, within]
+    max_depth = max(rp[:, 5].max().item(), 1e-30)
+    sdf_err = (sdf_k - sdf_p).abs()[same_px].max().item() / max_depth
+    n_valid = int(pts.valid.sum())
+    log(f"phase 7a integrate parity {W}x{H}: n_instances {int(binning.n_instances)}, "
+        f"max per tile {int(binning.max_tile_count)}, empty tiles "
+        f"{int((binning.tile_count == 0).sum())} of {binning.tile_count.numel()}; "
+        f"integrate_image run==rerun bitwise, float rows max abs err {img_err:.3e}, median "
+        f"contributor differs at {flips:.3e} of the pixels, median depth / mid_* err where "
+        f"it agrees {med_err:.3e}; integrate_points over {pts_np.shape[0]} points "
+        f"({n_valid} valid) run==rerun bitwise, alpha max abs err {a_err:.3e}, SDF err / max "
+        f"depth {sdf_err:.3e}")
+    check(img_err <= ABS_TOL and a_err <= ABS_TOL, f"integrate kernels vs plain: image "
+          f"{img_err}, alpha {a_err}")
+    check(flips <= MED_POS_TOL and med_err == 0.0, f"median contributor flips {flips}, "
+          f"median error where it agrees {med_err}")
+    check(sdf_err <= SDF_REL_TOL, f"SDF error {sdf_err} of the max depth")
+    check(0 < n_valid < pts_np.shape[0], "the query points miss a class")
+    return max(img_err, a_err), img_err, a_err
+
+
+def mesh_views():
+    return [(cam, None, i) for i, cam in enumerate(orbit_cameras(N_VIEWS, torch.device(DEVICE)))]
+
+
+def load_scene(path, cap, views):
+    from radegs_torch.models import gaussian_model as gm
+
+    return gm.update_3d_filter(gm.load_gaussian_ply(path, sh_degree=3, capacity=cap,
+                                                    device=torch.device(DEVICE)),
+                               [v[0] for v in views])
+
+
+def mesh_tsdf(state, views, workdir, label):
+    """``extract_mesh_tsdf`` over ``views`` (voxel 0.004, max_resolution 768),
+    written with ``write_mesh`` and read back; fails unless > 10k faces and
+    ``blend_fwd`` ran once per view."""
+    from radegs_torch.mesh.tsdf import extract_mesh_tsdf
+    from radegs_torch.ops import blend
+    from radegs_torch.utils import ply as plyio
+
+    before = sum(blend.LAUNCHES.values())
+    stats = {}
+    out = os.path.join(workdir, "tsdf.ply")
+    t0 = time.perf_counter()
+    verts, faces = extract_mesh_tsdf(state, views, 0.1, [0.0, 0.0, 0.0], voxel_size=0.004,
+                                     out_path=out, max_per_tile=8192, max_resolution=768,
+                                     verbose=False, device=DEVICE, stats=stats)
+    wall = time.perf_counter() - t0
+    n_blend = sum(blend.LAUNCHES.values()) - before
+    rv, rf = plyio.read_mesh(out)
+    log(f"phase {label}, {len(views)} views at {WIDTH}x{HEIGHT}: {wall:.3f} s "
+        f"(depth maps {stats['depth_maps']:.3f}, block marking {stats['mark']:.3f}, "
+        f"fusion {stats['fuse']:.3f}, meshing {stats['mesh']:.3f}); "
+        f"{stats['active_blocks']} active blocks; {len(verts)} vertices, {len(faces)} "
+        f"faces; blend_fwd launches {n_blend}")
+    check(len(faces) > 10_000, f"{label}: TSDF mesh has {len(faces)} faces")
+    check(n_blend == len(views), f"{label}: blend_fwd ran {n_blend} times for {len(views)} views")
+    check(rv.shape == verts.shape and rf.shape == faces.shape, f"{label}: PLY does not read back")
+    return dict(wall=wall, stats=stats, n_verts=len(verts), n_faces=len(faces)), verts, faces
+
+
+@contextlib.contextmanager
+def timed_integrate():
+    """CUDA events around every call of the two integrate kernel wrappers
+    (the launch and its wrapper's packing; for B6 the point sort and work
+    items, as phase 7d times them). Yields the list of (kernel, query
+    points, start, end) it fills."""
+    from radegs_torch.ops import integrate as ig
+
+    calls = []
+
+    def timed(name, fn, n_points):
+        def call(*args):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args)
+            end.record()
+            calls.append((name, n_points(args), start, end))
+            return out
+        return call
+
+    orig = ig.integrate_image_rows, ig.integrate_points_alpha
+    ig.integrate_image_rows = timed("integrate_image", orig[0], lambda a: 0)
+    ig.integrate_points_alpha = timed("integrate_points", orig[1], lambda a: a[2].xy.shape[0])
+    try:
+        yield calls
+    finally:
+        ig.integrate_image_rows, ig.integrate_points_alpha = orig
+
+
+def mesh_tetra(state, views, workdir, label, n_binary_steps=8):
+    """``extract_mesh_tetrahedra`` over ``views`` (``decimate="auto"``, the
+    instance budget from the measured radius-only demand), the integrate
+    wrappers timed by ``timed_integrate``; fails unless > 1000 faces,
+    ``integrate_image`` ran once per view and ``integrate_points`` at least
+    (1 + n_binary_steps) times per view."""
+    from radegs_torch.mesh.extract_tetra import extract_mesh_tetrahedra
+    from radegs_torch.ops import integrate as ig
+    from radegs_torch.ops.binning import round_budget
+
+    need = integrate_demand(state, [v[0] for v in views])
+    budget = round_budget(need)
+    before = dict(ig.LAUNCHES)
+    stats = {}
+    t0 = time.perf_counter()
+    with timed_integrate() as events:
+        verts, faces = extract_mesh_tetrahedra(
+            state, views, 0.1, [0.0, 0.0, 0.0], out_path=os.path.join(workdir, "tetra.ply"),
+            n_binary_steps=n_binary_steps, max_per_tile=8192, instance_budget=budget,
+            verbose=False, decimate="auto", device=DEVICE, stats=stats)
+    wall = time.perf_counter() - t0
+    launches = {k: ig.LAUNCHES[k] - before[k] for k in before}
+    torch.cuda.synchronize()
+    b5_ms = sum(a.elapsed_time(b) for name, _, a, b in events if name == "integrate_image")
+    # B6 per SDF pass: the first pass walks the seeds, every binary-search
+    # step the crossing edges' midpoints (one launch per view and chunk)
+    b6 = [(n, a.elapsed_time(b)) for name, n, a, b in events if name == "integrate_points"]
+    n_cross = stats["n_crossing"]
+    b6_first = sum(ms for n, ms in b6 if n != n_cross)
+    b6_step = sum(ms for n, ms in b6 if n == n_cross) / max(n_binary_steps, 1)
+    log(f"phase {label}, {len(views)} views at {WIDTH}x{HEIGHT}, instance budget {budget} "
+        f"(radius-only demand {need}): {wall:.3f} s; seeds {stats['n_seeds']} -> "
+        f"{stats['n_seeds_decimated']} after the dedup; Delaunay {stats['delaunay_s']:.3f} s, "
+        f"{stats['n_cells']} cells; {n_cross} crossing edges, {len(verts)} vertices, "
+        f"{len(faces)} faces; wrapper calls: integrate_image {b5_ms:.3f} ms over the views; "
+        f"integrate_points {b6_first:.3f} ms in the first SDF pass, {b6_step:.3f} ms per "
+        f"binary-search step ({len(b6)} launches); SDF pass s {stats['sdf_pass_s']}; "
+        f"launches {launches}")
+    check(len(faces) > 1000, f"{label}: tetra mesh has {len(faces)} faces")
+    check(launches["integrate_image"] == len(views),
+          f"{label}: integrate_image ran {launches['integrate_image']} times for "
+          f"{len(views)} views")
+    check(launches["integrate_points"] >= (1 + n_binary_steps) * len(views),
+          f"{label}: integrate_points ran {launches['integrate_points']} times")
+    return dict(wall=wall, stats=stats, n_verts=len(verts), n_faces=len(faces), b5_ms=b5_ms,
+                b6_first_ms=b6_first, b6_step_ms=b6_step), verts, faces
+
+
+def splat_sigmas(state):
+    """Median splat sigma (the KNN scale) of the sphere's and the plane's splats."""
+    act = state.active
+    xyz = state.params.xyz[act].cpu().numpy().astype(np.float64)
+    sig = state.get_scaling()[act][:, 0].cpu().numpy()
+    near_s = np.abs(np.linalg.norm(xyz, axis=1) - 1.3) < np.abs(xyz[:, 1] + 1.4)
+    return float(np.median(sig[near_s])), float(np.median(sig[~near_s]))
+
+
+def clean_geometry(verts, sigmas, label):
+    """The witness check of phase 7e on the noise-free scene: the phase 7b
+    median distance to the analytic surfaces (< 0.1), and that distance in
+    splat sigmas of the nearer surface (< CLEAN_SIGMA_TOL). A depth or
+    meshing fault that moves the surface by the 0.07 left unexplained on the
+    noisy scenes would show here as ~3 sigma of the sphere's splats."""
+    v = np.asarray(verts, np.float64)
+    rs = np.linalg.norm(v, axis=1) - 1.3  # outward offsets
+    yp = v[:, 1] + 1.4
+    near_s = np.abs(rs) < np.abs(yp)
+    d = np.where(near_s, np.abs(rs), np.abs(yp))
+    dn = np.where(near_s, np.abs(rs) / sigmas[0], np.abs(yp) / sigmas[1])
+    dist, dist_sigma = float(np.median(d)), float(np.median(dn))
+    off_s = float(np.median(rs[near_s])) if near_s.any() else 0.0
+    off_p = float(np.median(yp[~near_s])) if (~near_s).any() else 0.0
+    log(f"  {label} geometry (noise-free surfaces): median distance {dist:.5f} = "
+        f"{dist_sigma:.3f} splat sigmas (sphere sigma {sigmas[0]:.5f}, plane "
+        f"{sigmas[1]:.5f}); {near_s.mean():.4f} of the vertices nearer the sphere, median "
+        f"outward offset {off_s:.5f} there, {off_p:.5f} above the plane")
+    check(dist < MESH_VIEWS_DIST_TOL, f"{label} mesh median distance {dist}")
+    check(dist_sigma < CLEAN_SIGMA_TOL, f"{label} mesh median distance {dist_sigma} sigmas")
+    return dict(dist=dist, dist_sigma=dist_sigma, off_sphere=off_s, off_plane=off_p)
+
+
+def mesh_witness(workdir):
+    """Phase 7e: the noise-free witness scene (``surface_points(50_000)``
+    without its noise, KNN scales, opacity 0.8): TSDF and tetra held to the
+    analytic surfaces; then ``extract_mesh_unbounded`` (resolution 256) and
+    ``cull_mesh`` + ``post_process_mesh`` of the tetra mesh on the card."""
+    from radegs_torch.mesh.culling import cull_mesh, post_process_mesh
+    from radegs_torch.mesh.unbounded import extract_mesh_unbounded
+    from radegs_torch.ops.binning import default_instance_budget
+
+    views = mesh_views()
+    path = os.path.join(workdir, "clean50k.ply")
+    cap = scene_ply(path, "clean50k")
+    state = load_scene(path, cap, views)
+    need = integrate_demand(state, [v[0] for v in views])
+    check(need <= default_instance_budget(cap), f"7e render budget below the demand {need}")
+    sigmas = splat_sigmas(state)
+    tsdf, verts, _ = mesh_tsdf(state, views, workdir, "7e TSDF of the noise-free 50k scene")
+    tsdf_geo = clean_geometry(verts, sigmas, "7e TSDF")
+    tetra, verts, faces = mesh_tetra(state, views, workdir,
+                                     "7e tetra of the noise-free 50k scene")
+    tetra_geo = clean_geometry(verts, sigmas, "7e tetra")
+
+    t0 = time.perf_counter()
+    uv, uf, uc = extract_mesh_unbounded(state, views, 0.1, [0.0, 0.0, 0.0], resolution=256,
+                                        block=64, max_per_tile=8192, verbose=False,
+                                        device=DEVICE)
+    t_unb = time.perf_counter() - t0
+    d_unb = float(np.median(surface_distance(uv)[0]))
+    log(f"phase 7e unbounded (resolution 256): {t_unb:.3f} s, {len(uv)} vertices, {len(uf)} "
+        f"faces; median distance to the noise-free surfaces {d_unb:.5f}")
+    check(len(uf) > 10_000 and uc.shape == (len(uv), 3), f"7e unbounded mesh: {len(uf)} faces")
+    check(d_unb < MESH_VIEWS_DIST_TOL, f"7e unbounded mesh median distance {d_unb}")
+
+    t0 = time.perf_counter()
+    cv, cf = cull_mesh(verts, faces, [v[0] for v in views], min_views=1, device=DEVICE)
+    pv, pf = post_process_mesh(cv, cf)
+    t_cull = time.perf_counter() - t0
+    log(f"phase 7e culling of the tetra mesh: {t_cull:.3f} s; {len(faces)} faces -> "
+        f"{len(cf)} seen from a view -> {len(pf)} in the large clusters")
+    check(0 < len(pf) <= len(cf) <= len(faces), "7e culling emptied the mesh")
+    del state
+    torch.cuda.empty_cache()
+    return dict(sigmas=sigmas, tsdf=tsdf, tsdf_geo=tsdf_geo, tetra=tetra, tetra_geo=tetra_geo,
+                unbounded=dict(wall=t_unb, n_faces=len(uf), dist=d_unb),
+                cull=dict(wall=t_cull, n_faces=len(cf), n_kept=len(pf)))
+
+
+def integrate_alone(res):
+    """Phase 7d: the integrate kernels alone at the dense view 0 (launches
+    here are not counted)."""
+    from radegs_torch.ops import integrate as ig
+    from radegs_torch.ops.binning import bin_gaussians, round_budget
+    from radegs_torch.renderer import prepare
+
+    dev = torch.device(DEVICE)
+    views = mesh_views()
+    state = load_scene(res["dpath"], res["dcap"], views)
+    W, H, T = WIDTH, HEIGHT, ((WIDTH + 15) // 16) * ((HEIGHT + 15) // 16)
+    with torch.no_grad():
+        prep = prepare(state, views[0][0], 0.1, compute_invraycov=True)
+        del state
+
+        def binned(budget):
+            return bin_gaussians(prep.xy, prep.radius, prep.depth, prep.valid, W, H,
+                                 instance_budget=budget, max_per_tile=8192,
+                                 need_tile_gauss=True)
+
+        need = int(binned(1).n_instances)
+        budget = round_budget(need)
+        binning = binned(budget)
+        check(int(binning.n_overflow) == 0, "7d binning overflowed")
+        feat, pfeat = ig.image_features(prep), ig.point_features(prep)
+        P, n_inst = feat.shape[0], int(binning.gauss_id.numel())
+        rows, med = ig.integrate_image_rows(binning, feat, W, H)
+        t0 = time.perf_counter()
+        rp, mp, iwork = ig.integrate_image_torch(binning.tile_gauss, feat, W, H,
+                                                 count_work=True)
+        torch.cuda.synchronize()
+        img_plain_ms = (time.perf_counter() - t0) * 1e3
+        img_err, flips, med_err = compare_image(rows, med, rp, mp)
+        mid = {k: rows[:, 8 + j] for j, k in enumerate(ig.MID_KEYS)}
+        del rp, mp
+
+        rng = np.random.default_rng(7)
+        N = 1_000_000
+        pts_np = surface_points(N, rng) + rng.normal(size=(N, 3)).astype(np.float32) * 0.02
+        pts = ig.project_points(torch.from_numpy(pts_np).to(dev), views[0][0])
+        a_full = ig.integrate_points_alpha(binning, pfeat, pts, W, H)
+        # a seeded 16k subset of the same projected points, spread over the
+        # whole index range: in the 1M launch its points sit at every rank of
+        # their tile's run, so in every work item of a tile, not only the first
+        sel = torch.from_numpy(np.sort(rng.choice(N, 16_384, replace=False))).to(dev)
+        sub = ig.PointProjection(*(f[sel] for f in pts))
+        a_sub = ig.integrate_points_alpha(binning, pfeat, sub, W, H)
+        t0 = time.perf_counter()
+        ap, _, pwork_sub = ig.integrate_points_torch(binning.tile_gauss, pfeat, sub, mid,
+                                                     (W + 15) // 16, count_work=True)
+        torch.cuda.synchronize()
+        pt_plain_ms = (time.perf_counter() - t0) * 1e3
+        a_err = (a_sub - ap).abs().max().item()
+        # a point's walk does not depend on the work item that holds it, so
+        # the 1M launch must equal the subset's launch bitwise; the subset's
+        # rank in its tile's run (of the 1M points) says how many of its
+        # points a later item (rank >= 256) walked
+        counts_pts = torch.bincount(pts.tile[pts.valid], minlength=T)
+        order = ig.point_work_items(pts, T)[0].to(torch.int64)
+        first = torch.cumsum(counts_pts, 0) - counts_pts
+        rank = torch.full((N,), -1, dtype=torch.int64, device=dev)
+        rank[order] = torch.arange(order.numel(), device=dev) - first[pts.tile[order]]
+        n_later = int((rank[sel] >= ig.POINTS_PER_ITEM).sum())
+        max_tile_pts = int(counts_pts.max())
+        n_big = int((counts_pts > ig.POINTS_PER_ITEM).sum())
+        split_same = torch.equal(a_full[sel], a_sub)
+        # the B6 work of the 1M points: pairs exact from the tile counts, the
+        # data-dependent shares from the 16k subset
+        counts = binning.tile_count.to(torch.int64)
+        n_pairs = int(counts[pts.tile[pts.valid]].sum())
+        share = n_pairs / max(int(pwork_sub["n_pairs"]), 1)
+        pwork = {"n_pairs": n_pairs, **{k: int(v) * share for k, v in pwork_sub.items()
+                                        if k != "n_pairs"}}
+        timing = {}
+        for name in ("image", "points", "points", "image"):  # in turns
+            fn = ((lambda: ig.integrate_image_rows(binning, feat, W, H)) if name == "image"
+                  else (lambda: ig.integrate_points_alpha(binning, pfeat, pts, W, H)))
+            timing.setdefault(name, []).append(time_ms(fn, 10))
+        ib = integrate_bound_ms("image", P, n_inst, T, 0, iwork)
+        pb = integrate_bound_ms("points", P, n_inst, T, int(pts.valid.sum()), pwork)
+    log(f"phase 7d integrate kernels alone at the dense view 0: {n_inst} instances "
+        f"(radius-only demand {need}, budget {budget}), max per tile "
+        f"{int(binning.max_tile_count)}, tile_overflow {int(binning.tile_overflow)}; "
+        f"integrate_image ms (2 x 10 launches) {timing['image']}, plain {img_plain_ms:.3f} "
+        f"(full view), bound {ib[0]:.4f} ms by {ib[1]} ({ib[2]} bytes, {ib[3]} FP32 "
+        f"operations; work {dict((k, int(v)) for k, v in iwork.items())}); vs plain: float "
+        f"rows {img_err:.3e}, median flips {flips:.3e}, median err {med_err:.3e}; "
+        f"integrate_points over {N} points ({int(pts.valid.sum())} valid; at most "
+        f"{max_tile_pts} in a tile, {n_big} tiles over {ig.POINTS_PER_ITEM}) ms (2 x 10 "
+        f"launches) {timing['points']}, plain {pt_plain_ms:.3f} on a 16384-point subset, "
+        f"bound {pb[0]:.4f} ms by {pb[1]} ({pb[2]} bytes, {pb[3]} FP32 operations; work "
+        f"{dict((k, int(v)) for k, v in pwork.items())}); subset alpha err {a_err:.3e}; the "
+        f"1M launch equals the subset's launch bitwise: {split_same} ({n_later} of the "
+        f"subset's points in a later work item of their tile)")
+    check(img_err <= ABS_TOL and a_err <= ABS_TOL, f"7d kernel vs plain: {img_err}, {a_err}")
+    check(flips <= MED_POS_TOL and med_err == 0.0, f"7d median flips {flips}, err {med_err}")
+    check(max_tile_pts > ig.POINTS_PER_ITEM and n_later > 0,
+          f"7d: no tile's run was split into work items ({max_tile_pts} points at most)")
+    check(split_same, "7d: the 1M-point launch differs from the subset's launch")
+    return dict(img_ms=float(np.median(timing["image"])), pt_ms=float(np.median(timing["points"])),
+                img_plain_ms=img_plain_ms, pt_plain_ms=pt_plain_ms, img_bound=ib, pt_bound=pb,
+                img_err=img_err, a_err=a_err)
+
+
+def mesh_path(res, workdir):
+    """Phase 7: integrate parity, then the mesh path (TSDF, tetra, the
+    witness scene with unbounded extraction and culling), then the kernels
+    alone."""
+    from radegs_torch.ops import blend
+    from radegs_torch.ops import integrate as ig
+
+    parity = [integrate_parity(), integrate_parity(250, 190, (1.6, 0, 0))]
+    ig.reset_launches()  # the mesh path starts here
+    blend.reset_launches()
+    views = mesh_views()
+    state = load_scene(res["dpath"], res["dcap"], views)
+    tsdf, verts, _ = mesh_tsdf(state, views, workdir, "7b TSDF of the dense 1.2M scene")
+    tsdf["dist"], tsdf["dist0"] = mesh_geometry(verts, "7b TSDF")
+    del state
+    torch.cuda.empty_cache()
+    path = os.path.join(workdir, "surface50k.ply")
+    state = load_scene(path, scene_ply(path, "surface50k"), views)
+    tetra, verts, _ = mesh_tetra(state, views, workdir, f"7c tetra of the {TETRA_N}-splat scene")
+    tetra["dist"], tetra["dist0"] = mesh_geometry(verts, "7c tetra")
+    del state
+    torch.cuda.empty_cache()
+    witness = mesh_witness(workdir)
+    launches = {**dict(ig.LAUNCHES), **dict(blend.LAUNCHES)}  # the mesh path ends here
+    log(f"mesh path kernel launches: {launches}")
+    check(all(ig.LAUNCHES[k] > 0 for k in ig.LAUNCHES), f"an integrate kernel never ran on "
+          f"the mesh path: {launches}")
+    alone = integrate_alone(res)
+    return dict(parity=parity, tsdf=tsdf, tetra=tetra, witness=witness, launches=launches,
+                alone=alone)
+
+
 def profile_serving(workdir):
     """``--profile``: torch.profiler over 3 views of the 100k scene and 1 of
     the dense scene; prints the device time by operation and the device's
@@ -797,6 +1366,7 @@ def main():
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         res = full_scale(tmp)
         tr = training(res)
+        mesh = mesh_path(res, tmp)
     kernels = []
     for g, replaces in ((1, "radegs_tpu/ops/pallas_blend.py:263"),
                         (2, "radegs_tpu/ops/pallas_blend_mt.py:73")):
@@ -817,6 +1387,20 @@ def main():
             "max_abs_err": max([p[1] for p in parity] + [res["bwd_abs"]]),
             "ms": float(np.median(res["btiming"][g])), "plain_ms": res["bplain_ms"],
             "bound_ms": res["bbound"], "bound_by": res["bbound_by"], "library_ms": None,
+        })
+    alone = mesh["alone"]
+    for name, replaces, err, ms, plain_ms, bound in (
+            ("integrate_image", "radegs_tpu/ops/pallas_integrate.py:258",
+             max([p[1] for p in mesh["parity"]] + [alone["img_err"]]), alone["img_ms"],
+             alone["img_plain_ms"], alone["img_bound"]),
+            ("integrate_points", "radegs_tpu/ops/pallas_integrate.py:62",
+             max([p[2] for p in mesh["parity"]] + [alone["a_err"]]), alone["pt_ms"],
+             alone["pt_plain_ms"], alone["pt_bound"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"radegs_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": mesh["launches"][name], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None,
         })
     log(f"backward kernel vs plain, max rel err per field over phases 2 and 5: "
         f"{max([p[2] for p in parity] + [res['bwd_rel']]):.3e}")

@@ -404,6 +404,30 @@ def maybe_grow(state: GaussianState, headroom: float = 0.9) -> GaussianState:
     return resize_capacity(state, 2 * state.capacity)
 
 
+def get_tetra_points(state: GaussianState):
+    """Tetrahedralization seeds (gaussian_model.py:399-429): the 8 oriented
+    box corners at 3 sigma of the filtered scales, then the centres, over the
+    active Gaussians. Returns host numpy (points (9n, 3) float32,
+    point_scales (9n,) float32 = 3 x the largest filtered scale), corners
+    first, as the reference orders them."""
+    sel = state.active.nonzero()[:, 0]
+    scales, _ = state.get_fused_scaling_opacity()
+
+    def host(x):
+        return x[sel].detach().cpu().numpy()
+
+    xyz = host(state.params.xyz)
+    R = host(quat_to_rotmat(state.get_rotation()))
+    scale = host(scales) * 3.0
+    corners = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)],
+                       np.float64)  # (8, 3), trimesh.creation.box() * 2 order
+    pts = xyz[:, None, :] + np.einsum("nij,nkj->nki", R, corners[None] * scale[:, None, :])
+    smax = scale.max(axis=-1)
+    all_pts = np.concatenate([pts.reshape(-1, 3), xyz], axis=0)
+    all_scales = np.concatenate([np.repeat(smax, 8), smax], axis=0)
+    return all_pts.astype(np.float32), all_scales.astype(np.float32)
+
+
 # ------------------------------------------------------------- PLY I/O ----
 
 

@@ -90,6 +90,27 @@ def load(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
+def entry(name: str, n_ptr: int, n_int: int):
+    """The C entry ``radegs_<name>`` of kernel ``name``, built at first use,
+    with its ctypes signature: ``n_ptr`` pointers, ``n_int`` ints, then the
+    stream; it returns the launch's cudaError_t (0 on success)."""
+    fn = getattr(load(name), f"radegs_{name}")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_tensor(name: str, x, dtype, shape, device):
+    """Raise unless kernel input ``name`` is a contiguous ``dtype`` tensor of
+    ``shape`` on ``device`` (the kernels take raw pointers)."""
+    if x.device != device or x.dtype != dtype or tuple(x.shape) != tuple(shape) \
+            or not x.is_contiguous():
+        raise ValueError(f"kernel input {name} must be a contiguous {dtype} tensor of shape "
+                         f"{tuple(shape)} on {device}; got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+
+
 def build_log(name: str) -> str:
     """What nvcc printed for ``name`` (empty if it was built by another run)."""
     log = library_path(name).with_suffix(".log")

@@ -31,7 +31,6 @@ channel ``xy_abs`` = sum |e_x| W/2 + |e_y| H/2 (rasterize.py:344-347), as
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -308,24 +307,6 @@ def pack_features(inputs):
     ).to(torch.float32).contiguous()
 
 
-def _library(name):
-    """The ctypes entry of kernel ``name`` (``radegs_<name>``), built at first use."""
-    fn = getattr(build.load(name), f"radegs_{name}")
-    if fn.argtypes is None:
-        n_ptr, n_int = {"blend_fwd": (6, 3), "blend_bwd": (10, 7)}[name]
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(name, x, dtype, shape, device):
-    if x.device != device or x.dtype != dtype or tuple(x.shape) != tuple(shape) \
-            or not x.is_contiguous():
-        raise ValueError(f"blend kernel: {name} must be a contiguous {dtype} tensor "
-                         f"of shape {tuple(shape)} on {device}; got {x.dtype} "
-                         f"{tuple(x.shape)} on {x.device}")
-
-
 def _kernel_inputs(binning: TileBinning, inputs, width: int, height: int,
                    tiles_per_block: int):
     """Checks shared by both kernels' wrappers; returns (feat, T, tiles_x)."""
@@ -338,10 +319,10 @@ def _kernel_inputs(binning: TileBinning, inputs, width: int, height: int,
     T = tiles_x * tiles_y
     feat = pack_features(inputs)
     P = feat.shape[0]
-    _check("features", feat, torch.float32, (P, N_FEAT), dev)
-    _check("gauss_id", binning.gauss_id, torch.int32, binning.gauss_id.shape, dev)
-    _check("tile_start", binning.tile_start, torch.int32, (T,), dev)
-    _check("tile_count", binning.tile_count, torch.int32, (T,), dev)
+    build.check_tensor("features", feat, torch.float32, (P, N_FEAT), dev)
+    build.check_tensor("gauss_id", binning.gauss_id, torch.int32, binning.gauss_id.shape, dev)
+    build.check_tensor("tile_start", binning.tile_start, torch.int32, (T,), dev)
+    build.check_tensor("tile_count", binning.tile_count, torch.int32, (T,), dev)
     if feat.data_ptr() % 16:
         raise ValueError("blend kernel: the feature table must be 16-byte aligned")
     return feat, T, tiles_x
@@ -367,7 +348,7 @@ def blend_forward_packed(binning: TileBinning, inputs, width: int, height: int,
     dev = feat.device
     out = torch.empty((T, N_OUT, TILE * TILE), dtype=torch.float32, device=dev)
     med_pos = torch.empty((T, TILE * TILE), dtype=torch.int32, device=dev)
-    fn = _library("blend_fwd")
+    fn = build.entry("blend_fwd", 6, 3)
     with torch.cuda.device(dev):
         rc = fn(feat.data_ptr(), binning.gauss_id.data_ptr(),
                 binning.tile_start.data_ptr(), binning.tile_count.data_ptr(),
@@ -417,8 +398,8 @@ def blend_backward(binning: TileBinning, inputs, fwd_out, cot, width: int, heigh
     P, N = feat.shape[0], binning.gauss_id.numel()
     aux = pack_aux(fwd_out, cot)
     med_pos = fwd_out["med_pos"].to(torch.int32).contiguous()
-    _check("aux", aux, torch.float32, (T, N_AUX, TILE * TILE), dev)
-    _check("med_pos", med_pos, torch.int32, (T, TILE * TILE), dev)
+    build.check_tensor("aux", aux, torch.float32, (T, N_AUX, TILE * TILE), dev)
+    build.check_tensor("med_pos", med_pos, torch.int32, (T, TILE * TILE), dev)
     # each Gaussian's instances, in sorted-position order (a stable sort)
     gid_sorted, perm = torch.sort(binning.gauss_id, stable=True)
     perm = perm.to(torch.int32)
@@ -426,7 +407,7 @@ def blend_backward(binning: TileBinning, inputs, fwd_out, cot, width: int, heigh
     seg = seg.to(torch.int32)
     inst_rows = torch.empty((N, N_GRAD), dtype=torch.float32, device=dev)
     grad = torch.empty((P, N_GRAD), dtype=torch.float32, device=dev)
-    fn = _library("blend_bwd")
+    fn = build.entry("blend_bwd", 10, 7)
     with torch.cuda.device(dev):
         rc = fn(feat.data_ptr(), binning.gauss_id.data_ptr(),
                 binning.tile_start.data_ptr(), binning.tile_count.data_ptr(),

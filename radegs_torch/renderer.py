@@ -1,7 +1,10 @@
-"""Renderer (port of ``radegs_tpu/renderer.py`` ``render`` and
-``mark_visible``; reference gaussian_renderer/__init__.py:19-95): applies the
-fused Mip 3D-filter getters, runs preprocess + rasterize, and returns the
-reference's render() dict."""
+"""Renderer (port of ``radegs_tpu/renderer.py``; reference
+gaussian_renderer/__init__.py:19-195): ``render`` applies the fused Mip
+3D-filter getters, runs preprocess + rasterize, and returns the reference's
+render() dict; ``integrate`` (and its two halves ``integrate_prepare`` /
+``integrate_points``) runs the same preprocess with the inverse ray-space
+covariance and the point-opacity integration of ``ops/integrate.py``;
+``mark_visible`` is the frustum test."""
 
 from __future__ import annotations
 
@@ -9,6 +12,7 @@ import torch
 
 from radegs_torch.core.projection import NEAR_PLANE, preprocess_gaussians
 from radegs_torch.models.gaussian_model import GaussianState
+from radegs_torch.ops import integrate as integrate_op
 from radegs_torch.ops.binning import default_instance_budget
 from radegs_torch.ops.rasterize import mark, rasterize
 from radegs_torch.utils.device import resolve_device
@@ -23,9 +27,10 @@ def _on(device, state: GaussianState, camera):
 
 
 def prepare(state: GaussianState, camera, kernel_size: float = 0.0,
-            scaling_modifier: float = 1.0):
+            scaling_modifier: float = 1.0, compute_invraycov: bool = False):
     """The preprocess of ``render``: fused filtered scales and opacity,
-    inactive slots culled."""
+    inactive slots culled; ``compute_invraycov`` adds the inverse ray-space
+    covariance that integration needs."""
     scales, opacity = state.get_fused_scaling_opacity()
     opacity = torch.where(state.active[:, None], opacity, 0.0)
     prep = preprocess_gaussians(
@@ -39,6 +44,7 @@ def prepare(state: GaussianState, camera, kernel_size: float = 0.0,
         kernel_size=kernel_size,
         scale_modifier=scaling_modifier,
         active_sh_degree=state.active_sh_degree,
+        compute_invraycov=compute_invraycov,
     )
     return prep.replace(valid=prep.valid & state.active)
 
@@ -91,3 +97,45 @@ def mark_visible(state: GaussianState, camera, device=None):
     viewmat = camera.world_view
     p_view = state.params.xyz @ viewmat[:3, :3].T + viewmat[:3, 3]
     return (p_view[:, 2] > NEAR_PLANE) & state.active
+
+
+@torch.no_grad()
+def integrate_prepare(state: GaussianState, camera, bg, kernel_size: float = 0.0,
+                      max_per_tile: int = 1024, instance_budget: int | None = None,
+                      device=None):
+    """The points-independent half of ``integrate`` on ``device`` (default
+    ``cuda``): preprocess with the inverse ray-space covariance, radius-only
+    binning, the phase-A image and the median plane. Returns (prep, cache)
+    for ``integrate_points``, reusable across point sets (the tetra
+    extractor's binary search evaluates 1 + 8 point sets per view)."""
+    camera = _on(device, state, camera)
+    bg = torch.as_tensor(bg, dtype=torch.float32, device=state.device)
+    prep = prepare(state, camera, kernel_size, compute_invraycov=True)
+    if instance_budget is None:
+        instance_budget = default_instance_budget(state.capacity)
+    cache = integrate_op.integrate_view_cache(prep, camera, bg, max_per_tile=max_per_tile,
+                                              instance_budget=instance_budget)
+    return prep, cache
+
+
+@torch.no_grad()
+def integrate_points(points3d, prep, cache, camera):
+    """Phase B against a prepared cache (``integrate_prepare``): the dict of
+    ``integrate`` without ``binning``. ``points3d`` (N, 3) array or tensor."""
+    camera = camera if camera.device == prep.xy.device else camera.to(prep.xy.device)
+    return integrate_op.integrate_points_cached(points3d, prep, cache, camera)
+
+
+@torch.no_grad()
+def integrate(points3d, state: GaussianState, camera, bg, kernel_size: float = 0.0,
+              max_per_tile: int = 1024, instance_budget: int | None = None, device=None):
+    """Point-opacity integration on ``device`` (default ``cuda``; the state
+    must already live there) (gaussian_renderer/__init__.py:98-195): the
+    preprocess of ``render`` plus the inverse ray-space covariance. Returns
+    render (9, H, W), alpha_integrated (N,), color_integrated (N, 3),
+    point_coordinate (N, 2), point_sdf (N,), point_valid (N,) and binning."""
+    prep, cache = integrate_prepare(state, camera, bg, kernel_size, max_per_tile,
+                                    instance_budget, device)
+    out = integrate_points(points3d, prep, cache, camera)
+    out["binning"] = cache["binning"]
+    return out

@@ -7,8 +7,8 @@ f_rest_0..44,opacity,scale_0..2,rot_0..3,filter_3D — so PLYs round-trip with
 the reference tooling and any 3DGS viewer.
 
 The port's own copy of ``radegs_tpu/utils/ply.py`` (the reader and writer
-that the Gaussian PLY I/O needs), so ``radegs_torch`` imports nothing of the
-JAX package.
+that the Gaussian PLY I/O needs, and the mesh writer / reader of the
+extractors), so ``radegs_torch`` imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -132,3 +132,28 @@ def read_ply(path) -> Dict[str, np.ndarray]:
             dt = np.dtype([(p[0], "<" + _DTYPES[p[1]]) for p in props])
             out[name] = np.frombuffer(buf.read(dt.itemsize * count), dt).copy()
     return out
+
+
+def write_mesh(path, vertices: np.ndarray, faces: np.ndarray,
+               vertex_colors: np.ndarray | None = None):
+    """A triangle mesh as a binary PLY: float x, y, z per vertex (uchar red,
+    green, blue with ``vertex_colors``, floats in [0, 1] scaled by 255) and
+    int vertex-index lists."""
+    fields = [("x", "f4"), ("y", "f4"), ("z", "f4")]
+    if vertex_colors is not None:
+        fields += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
+    varr = np.empty(len(vertices), dtype=fields)
+    varr["x"], varr["y"], varr["z"] = vertices[:, 0], vertices[:, 1], vertices[:, 2]
+    if vertex_colors is not None:
+        c = np.clip(vertex_colors * 255 if vertex_colors.dtype.kind == "f" else vertex_colors,
+                    0, 255).astype(np.uint8)
+        varr["red"], varr["green"], varr["blue"] = c[:, 0], c[:, 1], c[:, 2]
+    write_ply(path, {"vertex": varr, "face": np.asarray(faces, np.int32)})
+
+
+def read_mesh(path):
+    """(vertices (V, 3) float32, faces (F, 3) int64) of a mesh PLY."""
+    d = read_ply(path)
+    v = d["vertex"]
+    pts = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float32)
+    return pts, np.asarray(d["face"], np.int64)
