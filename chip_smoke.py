@@ -75,15 +75,45 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
       than 256 points and subset points in their later work items.
    e. The witness of the geometric checks: the 50k scene of 7c without its
       noise (capacity 2^18, so the default render budget covers the demand).
-      TSDF and tetra as in 7b / 7c, each held to the noise-free surfaces:
+      TSDF (at max_resolution 384: cut from 7b's 768 for time) and tetra as
+      in 7b / 7c, each held to the noise-free surfaces:
       median vertex distance below 0.1 and below 3 splat sigmas of the
       nearer surface. Then ``extract_mesh_unbounded`` (resolution 256;
       median distance below 0.1) and ``cull_mesh`` + ``post_process_mesh``
       of the tetra mesh.
 
+8. The entry points at full width, through the CLIs on a dataset on disk
+   (launch counts set to 0 before and read after). A COLMAP dataset is
+   written from phase 7e's noise-free 50k-splat scene: 16 orbit views at
+   1600x1200 rendered by the port as ground truth (``write_png``), and
+   ``sparse/0/{cameras,images,points3D}.bin`` (PINHOLE; the 50k centres
+   jittered by N(0, 0.01^2) with seeded colours as points3D). Then, each
+   through ``main(argv)``: ``train --eval`` for 300 iterations (one densify
+   at 200, no opacity reset; test PSNR at 1 and 300, PLYs at 150 and 300,
+   a checkpoint at 150), ``train --start_checkpoint`` to 200, ``train
+   --use_decoupled_appearance`` for 50 iterations, ``mesh_extract
+   --max_resolution 384`` and ``mesh_extract_tetrahedra``; ``render
+   --save_depth --path_frames 8`` as a real subprocess. Fails unless every
+   loss is finite, test PSNR rises by 3 dB, the run's files exist, the
+   resumed run covers 151-200, the appearance parameters moved and stayed
+   finite, every PNG decodes to its shape, both meshes have > 10k faces
+   within a median 0.1 of the surfaces (widened by 2 jitter sigmas), and
+   the blend and integrate kernels ran. Wall seconds per step.
+9. The bisect probes (``radegs_torch/scripts/kernel_bisect.py``, launch
+   counts set to 0 before and read after): each of the four kernels of
+   ``csrc/bisect_probes.cu`` held to its plain version at the JAX shapes
+   and on seeded start / count sets (count 0, unaligned starts, windows
+   ending on the last column), bit-identical run to run, timed over 100
+   launches in a CUDA graph (the kernel alone) against its plain version, a
+   library call (also in a graph) and its bound; then ``window`` at the run
+   layout of the dense view 0 against its bytes bound.
+
 ``python3 chip_smoke.py --profile`` instead runs the setup and a
 torch.profiler pass over both scenes' serving and over 5 training
 iterations of the 100k scene (device time by operation, busy share).
+``python3 chip_smoke.py --train100k`` runs only phase 3's 100k serving at
+G=2 and phase 6's 100 iterations of the 100k scene: copied into a checkout
+of another commit and run there, it compares the two in one call.
 
 Every phase that fails raises, and the script exits non-zero without the
 result lines. The last three lines are the card's name and power limit, a
@@ -93,9 +123,12 @@ JSON object with a ``kernels`` list, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
+import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -150,10 +183,24 @@ SHELL_BAND = (0.1, 0.04)  # 2 sigma of surface_points' noise: sphere, plane
 CLEAN_SIGMA_TOL = 3.0
 TETRA_N = 50_000
 WITNESS_CAPACITY = 1 << 18  # its default render budget (2^21) covers the demand
+WITNESS_TSDF_RES = 384  # the witness TSDF's max_resolution (7b: 768)
 BWD_REL_TOL = 1e-4  # of max |plain| per gradient field
 TRAIN_ITERS = 100
 DENSIFY_LOG = (1, 39, 40, 41, 59, 60, 61, 79, 80, 81, TRAIN_ITERS)
 DEVICE = "cuda"
+# phase 8: the dataset on disk and the CLI runs
+DS_VIEWS = 16
+DS_JITTER = 0.01  # sigma of the points3D jitter
+CLI_ITERS, RESUME_ITERS, APP_ITERS = 300, 200, 50
+# one densify inside the run (at 200) and no opacity reset: a reset shortly
+# before a densify prunes every Gaussian (ROADMAP.md queue C)
+CLI_SCHEDULE = ["--densify_from_iter", "100", "--densification_interval", "100",
+                "--densify_until_iter", "250", "--regularization_from_iter", "100",
+                "--position_lr_max_steps", str(CLI_ITERS), "--kernel_size", "0.1"]
+PSNR_GAIN = 3.0  # dB, test PSNR at 300 over that at 1
+# phase 9: the bisect probes
+BISECT_REL_TOL = 1e-5  # x sum |terms| (sums, prefix sum) or x max |plain| (product)
+BISECT_SETS = (1, 2)  # seeds of the extra start / count sets
 
 
 def check(cond, msg):
@@ -260,6 +307,29 @@ def time_ms(fn, reps):
     t0.record()
     for _ in range(reps):
         fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps):
+    """Device ms per call of ``fn`` with no host time between the calls:
+    ``reps`` calls captured in one CUDA graph, replayed once to warm up and
+    once between two CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
@@ -624,32 +694,27 @@ def training_scene(path, cap, cams, budget):
     return scene, g0, time.perf_counter() - t0
 
 
-def training(res):
-    """Phase 6: the training path at full width on the 100k scene, then
-    train steps at converged scale, and the backward kernel alone there."""
-    from dataclasses import replace
+TRAIN_MCFG = dict(kernel_size=0.1)
+# the opacity reset comes after the last densify (both at 80): a densify 20
+# steps after a reset prunes every Gaussian, since 20 Adam steps cannot lift
+# a reset opacity (0.01) past the 0.05 prune threshold (the reference leaves
+# 100 steps, 3000 and 3100)
+TRAIN_OCFG = dict(iterations=TRAIN_ITERS, densify_from_iter=20, densification_interval=20,
+                  densify_until_iter=90, opacity_reset_interval=80, regularization_from_iter=10,
+                  position_lr_max_steps=TRAIN_ITERS)
 
-    from radegs_torch.models import gaussian_model as gm
+
+def train_100k(path, cap, cams, budget):
+    """Phase 6's first part: ``train`` for 100 iterations of the 100k scene
+    at 1600x1200 (G=2), checked and reported. Returns its numbers and the
+    scene extent."""
     from radegs_torch.ops import blend
-    from radegs_torch.ops.binning import round_budget
-    from radegs_torch.ops.rasterize import bin_prep, blend_inputs
-    from radegs_torch.renderer import prepare
     from radegs_torch.train.config import ModelConfig, OptimizationConfig, PipelineConfig
-    from radegs_torch.train.loop import TrainState, make_train_step, train
+    from radegs_torch.train.loop import train
 
-    dev = torch.device(DEVICE)
-    cams = res["cams"]
-    scene, g0, knn_s = training_scene(res["path"], res["cap"], cams, res["budget"])
+    scene, g0, knn_s = training_scene(path, cap, cams, budget)
     extent = scene.extent
-    mcfg = ModelConfig(kernel_size=0.1)
-    # the opacity reset comes after the last densify (both at 80): a densify
-    # 20 steps after a reset prunes every Gaussian, since 20 Adam steps cannot
-    # lift a reset opacity (0.01) past the 0.05 prune threshold (the
-    # reference leaves 100 steps, 3000 and 3100)
-    ocfg = OptimizationConfig(iterations=TRAIN_ITERS, densify_from_iter=20,
-                              densification_interval=20, densify_until_iter=90,
-                              opacity_reset_interval=80, regularization_from_iter=10,
-                              position_lr_max_steps=TRAIN_ITERS)
+    mcfg, ocfg = ModelConfig(**TRAIN_MCFG), OptimizationConfig(**TRAIN_OCFG)
     pcfg = PipelineConfig(max_per_tile=512)
     n0, c0 = int(g0.n_active()), g0.capacity
     log(f"phase 6 set-up: create_from_points of {n0} points (KNN included) {knn_s:.3f} s, "
@@ -702,6 +767,28 @@ def training(res):
                    loss_mid=mid)
     del ts, g0, scene, hist
     torch.cuda.empty_cache()
+    return results, extent
+
+
+def training(res):
+    """Phase 6: the training path at full width on the 100k scene, then
+    train steps at converged scale, and the backward kernel alone there."""
+    from dataclasses import replace
+
+    from radegs_torch.models import gaussian_model as gm
+    from radegs_torch.ops import blend
+    from radegs_torch.ops.binning import round_budget
+    from radegs_torch.ops.rasterize import bin_prep, blend_inputs
+    from radegs_torch.renderer import prepare
+    from radegs_torch.train.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from radegs_torch.train.loop import TrainState, make_train_step
+
+    dev = torch.device(DEVICE)
+    cams = res["cams"]
+    # ---- the training path starts here (blend.reset_launches in train_100k) ----
+    results, extent = train_100k(res["path"], res["cap"], cams, res["budget"])
+    mcfg, ocfg = ModelConfig(**TRAIN_MCFG), OptimizationConfig(**TRAIN_OCFG)
+    pcfg = PipelineConfig(max_per_tile=512)
 
     # ---- converged scale: train steps on the dense scene, G=2 then G=1, with
     # one budget segment above the served demand (the steps move the scales) ----
@@ -933,8 +1020,8 @@ def load_scene(path, cap, views):
                                [v[0] for v in views])
 
 
-def mesh_tsdf(state, views, workdir, label):
-    """``extract_mesh_tsdf`` over ``views`` (voxel 0.004, max_resolution 768),
+def mesh_tsdf(state, views, workdir, label, max_resolution=768):
+    """``extract_mesh_tsdf`` over ``views`` (voxel 0.004, ``max_resolution``),
     written with ``write_mesh`` and read back; fails unless > 10k faces and
     ``blend_fwd`` ran once per view."""
     from radegs_torch.mesh.tsdf import extract_mesh_tsdf
@@ -946,7 +1033,8 @@ def mesh_tsdf(state, views, workdir, label):
     out = os.path.join(workdir, "tsdf.ply")
     t0 = time.perf_counter()
     verts, faces = extract_mesh_tsdf(state, views, 0.1, [0.0, 0.0, 0.0], voxel_size=0.004,
-                                     out_path=out, max_per_tile=8192, max_resolution=768,
+                                     out_path=out, max_per_tile=8192,
+                                     max_resolution=max_resolution,
                                      verbose=False, device=DEVICE, stats=stats)
     wall = time.perf_counter() - t0
     n_blend = sum(blend.LAUNCHES.values()) - before
@@ -1088,7 +1176,10 @@ def mesh_witness(workdir):
     need = integrate_demand(state, [v[0] for v in views])
     check(need <= default_instance_budget(cap), f"7e render budget below the demand {need}")
     sigmas = splat_sigmas(state)
-    tsdf, verts, _ = mesh_tsdf(state, views, workdir, "7e TSDF of the noise-free 50k scene")
+    # 384^3, not 7b's 768^3: the host meshing of the larger grid took 80 s
+    # here, and phase 8 meshes this scene's dataset again
+    tsdf, verts, _ = mesh_tsdf(state, views, workdir, "7e TSDF of the noise-free 50k scene",
+                               max_resolution=WITNESS_TSDF_RES)
     tsdf_geo = clean_geometry(verts, sigmas, "7e TSDF")
     tetra, verts, faces = mesh_tetra(state, views, workdir,
                                      "7e tetra of the noise-free 50k scene")
@@ -1255,6 +1346,390 @@ def mesh_path(res, workdir):
                 alone=alone)
 
 
+# ------------------------------------------------------------ phase 8 ----
+
+
+def rotmat_to_qvec(R):
+    """(w, x, y, z) of a rotation matrix (Shepperd's method): the inverse of
+    COLMAP's qvec2rotmat."""
+    m = np.asarray(R, np.float64)
+    tr = np.trace(m)
+    k = int(np.argmax([tr, m[0, 0], m[1, 1], m[2, 2]]))
+    if k == 0:
+        s = 2.0 * math.sqrt(1.0 + tr)
+        q = [0.25 * s, (m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s, (m[1, 0] - m[0, 1]) / s]
+    elif k == 1:
+        s = 2.0 * math.sqrt(1.0 + m[0, 0] - m[1, 1] - m[2, 2])
+        q = [(m[2, 1] - m[1, 2]) / s, 0.25 * s, (m[0, 1] + m[1, 0]) / s, (m[0, 2] + m[2, 0]) / s]
+    elif k == 2:
+        s = 2.0 * math.sqrt(1.0 + m[1, 1] - m[0, 0] - m[2, 2])
+        q = [(m[0, 2] - m[2, 0]) / s, (m[0, 1] + m[1, 0]) / s, 0.25 * s, (m[1, 2] + m[2, 1]) / s]
+    else:
+        s = 2.0 * math.sqrt(1.0 + m[2, 2] - m[0, 0] - m[1, 1])
+        q = [(m[1, 0] - m[0, 1]) / s, (m[0, 2] + m[2, 0]) / s, (m[1, 2] + m[2, 1]) / s, 0.25 * s]
+    return np.asarray(q)
+
+
+def write_colmap_dataset(root, cams, images, points, colors):
+    """A COLMAP dataset on disk: ``images/view_XXX.png`` (``write_png``) and
+    ``sparse/0/{cameras,images,points3D}.bin`` written with ``struct`` (one
+    PINHOLE camera; each point with a two-entry track)."""
+    from radegs_torch.data.colmap import qvec2rotmat
+    from radegs_torch.utils.image import write_png
+
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse)
+    os.makedirs(os.path.join(root, "images"))
+    W, H = cams[0].width, cams[0].height
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1) + struct.pack("<iiQQ", 1, 1, W, H)
+                + struct.pack("<4d", float(cams[0].focal_x), float(cams[0].focal_y), W / 2, H / 2))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(cams)))
+        for k, (cam, img) in enumerate(zip(cams, images)):
+            w2c = cam.R.cpu().numpy().astype(np.float64).T
+            q = rotmat_to_qvec(w2c)
+            q /= np.linalg.norm(q)  # the float32 rotation is orthonormal to ~1e-7
+            check(np.abs(qvec2rotmat(q) - w2c).max() < 1e-6, "rotation -> qvec round trip")
+            name = f"view_{k:03d}.png"
+            f.write(struct.pack("<i4d3di", k + 1, *q, *cam.T.cpu().numpy().astype(np.float64), 1)
+                    + name.encode() + b"\x00" + struct.pack("<Q", 0))
+            write_png(os.path.join(root, "images", name), img)
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(points)))
+        for i, (p, c) in enumerate(zip(points.tolist(), colors.tolist())):
+            f.write(struct.pack("<Q3d3BdQ4i", i + 1, *p, *c, 0.5, 2, 1, i, 2, i))
+
+
+def run_cli(mod, argv, label):
+    """``mod.main(argv)`` with its standard output captured; returns (result,
+    wall seconds, the output)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    tail = " | ".join(ln.strip() for ln in text.strip().splitlines()[-2:])
+    log(f"  {label}: {wall:.3f} s; ends: {tail}")
+    return out, wall, text
+
+
+def cli_ms_per_iteration(text):
+    """Median ms per iteration from the training CLI's progress lines
+    (``[   it] ... X it/s``), the first two iterations left out."""
+    ips = [float(m.group(2)) for m in re.finditer(r"\[\s*(\d+)\] loss .* ([\d.]+) it/s", text)]
+    return 1e3 / float(np.median(ips[2:])) if len(ips) > 2 else float("nan")
+
+
+def check_pngs(paths, shapes):
+    """Every PNG decodes to one of its allowed shapes (by file-name suffix)."""
+    from radegs_torch.utils.image import read_png
+
+    for p in paths:
+        shape = read_png(p).shape
+        want = shapes["_depth" if p.endswith("_depth.png") else
+                      "_normal" if p.endswith("_normal.png") else ""]
+        check(shape in want, f"{p} decodes to {shape}, not {want}")
+    return len(paths)
+
+
+def entry_points(workdir, tr_res):
+    """Phase 8: the CLIs on a COLMAP dataset on disk at 1600x1200."""
+    import glob
+
+    from radegs_torch.data.scene import Scene
+    from radegs_torch.models.appearance import init_appearance
+    from radegs_torch.ops import blend
+    from radegs_torch.ops import integrate as ig
+    from radegs_torch.renderer import render
+    from radegs_torch.scripts import mesh_extract, mesh_extract_tetrahedra
+    from radegs_torch.scripts import train as train_cli
+    from radegs_torch.utils.image import read_png
+
+    dev = torch.device(DEVICE)
+    walls = {}
+    # ---- the dataset: phase 7e's noise-free scene as ground truth ----
+    t0 = time.perf_counter()
+    cams = orbit_cameras(DS_VIEWS, dev)
+    path = os.path.join(workdir, "ds_scene.ply")
+    cap = scene_ply(path, "clean50k")
+    state = load_scene(path, cap, [(c, None, i) for i, c in enumerate(cams)])
+    images = []
+    with torch.no_grad():
+        for cam in cams:
+            out = render(state, cam, [0.0, 0.0, 0.0], kernel_size=0.1, max_per_tile=8192,
+                         device=DEVICE)
+            check(int(out["binning"].n_overflow) == 0, "phase 8 ground truth overflowed")
+            images.append((out["render"].clamp(0, 1).permute(1, 2, 0) * 255 + 0.5)
+                          .to(torch.uint8).cpu().numpy())
+    rng = np.random.default_rng(8)
+    centres = state.params.xyz[state.active].cpu().numpy().astype(np.float64)
+    points = centres + rng.normal(size=centres.shape) * DS_JITTER
+    colors = rng.integers(0, 256, size=centres.shape)
+    del state
+    ds = os.path.join(workdir, "dataset")
+    write_colmap_dataset(ds, cams, images, points, colors)
+    walls["dataset_write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    png = read_png(os.path.join(ds, "images", "view_000.png"))
+    walls["png_decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = Scene(ds, eval_split=True, device=dev)
+    torch.cuda.synchronize()
+    walls["scene_read"] = time.perf_counter() - t0
+    n_train, n_test = len(scene.getTrainCameras()), len(scene.getTestCameras())
+    # the written bytes as the reader scales them (numpy float32 / 255 on the
+    # host: CUDA's scalar division is a multiply by the reciprocal)
+    gt_err = max(float(np.abs(gt.cpu().numpy() - images[int(im.split("_")[-1])].transpose(
+        2, 0, 1).astype(np.float32) / 255.0).max())
+                 for (_, gt, _), im in zip(scene.getTestCameras(),
+                                           [c.image_name for c in scene.info.test_cameras]))
+    log(f"phase 8 dataset: {DS_VIEWS} views at {WIDTH}x{HEIGHT}, {len(points)} points3D, "
+        f"written in {walls['dataset_write']:.3f} s (renders, PNG, sparse); one PNG decode "
+        f"{walls['png_decode']:.3f} s; Scene read (eval split) {walls['scene_read']:.3f} s for "
+        f"{n_train} train + {n_test} test views; test gt vs the written pixels {gt_err:.3e}")
+    check(png.shape == (HEIGHT, WIDTH, 3) and (n_train, n_test) == (14, 2),
+          f"dataset: png {png.shape}, split {n_train}/{n_test}")
+    check(gt_err == 0.0, f"the Scene's gt differs from the written pixels by {gt_err}")
+    del scene
+    torch.cuda.empty_cache()
+
+    # ---- the entry points (launch counts: the phase 8 path) ----
+    blend.reset_launches()
+    ig.reset_launches()
+    m1, m2, m3 = (os.path.join(workdir, m) for m in ("m1", "m2", "m3"))
+    (ts, hist, tpsnr), walls["train"], text = run_cli(train_cli, [
+        "-s", ds, "-m", m1, "--eval", "--iterations", str(CLI_ITERS), "--test_iterations", "1",
+        str(CLI_ITERS), "--save_iterations", "150", str(CLI_ITERS), "--checkpoint_iterations",
+        "150", "--log_every", "1", *CLI_SCHEDULE], "train")
+    ms_it = cli_ms_per_iteration(text)
+    losses = [h["loss"] for h in hist]
+    log(f"phase 8 train: {CLI_ITERS} iterations, {ms_it:.3f} ms per iteration (the CLI's "
+        f"it/s, median; phase 6: {tr_res['train_host_ms']:.3f}); test PSNR {tpsnr}; n_active "
+        + ", ".join(f"{h['iteration']}: {h['n_active']}" for h in hist
+                    if h["iteration"] in (1, 199, 200, CLI_ITERS))
+        + f"; loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    check(len(losses) == CLI_ITERS and all(math.isfinite(x) for x in losses),
+          "phase 8 train losses not finite")
+    check(tpsnr[CLI_ITERS] >= tpsnr[1] + PSNR_GAIN, f"test PSNR {tpsnr}")
+    for rel in ("cfg_args", "cameras.json", "history.json", "input.ply", "chkpnt150",
+                "point_cloud/iteration_150/point_cloud.ply",
+                f"point_cloud/iteration_{CLI_ITERS}/point_cloud.ply"):
+        check(os.path.exists(os.path.join(m1, rel)), f"phase 8 train wrote no {rel}")
+    del ts
+    (ts, hist, _), walls["resume"], text = run_cli(train_cli, [
+        "-s", ds, "-m", m2, "--eval", "--start_checkpoint", os.path.join(m1, "chkpnt150"),
+        "--iterations", str(RESUME_ITERS), "--log_every", "1", *CLI_SCHEDULE], "resume")
+    its = [h["iteration"] for h in hist]
+    log(f"phase 8 resume from 150: iterations {its[0]}..{its[-1]}, loss {hist[0]['loss']:.5f} "
+        f"-> {hist[-1]['loss']:.5f}")
+    check(its[0] == 151 and its[-1] == RESUME_ITERS and ts.iteration == RESUME_ITERS,
+          f"resumed run covers {its[0]}..{its[-1]}")
+    check(all(math.isfinite(h["loss"]) for h in hist), "resumed losses not finite")
+    del ts
+    (ts, hist, _), walls["appearance"], text = run_cli(train_cli, [
+        "-s", ds, "-m", m3, "--use_decoupled_appearance", "--iterations", str(APP_ITERS),
+        "--log_every", "1", *CLI_SCHEDULE], "appearance")
+    _, init = init_appearance(torch.Generator(device=dev).manual_seed(1))  # train(): seed + 1
+    moved = {k: float((ts.app_params["net"][k] - v).abs().max()) for k, v in init["net"].items()}
+    moved["embeddings"] = float((ts.app_params["embeddings"] - init["embeddings"]).abs().max())
+    finite = all(bool(torch.isfinite(v).all()) for v in
+                 [*ts.app_params["net"].values(), ts.app_params["embeddings"]])
+    log(f"phase 8 appearance: {APP_ITERS} iterations, {cli_ms_per_iteration(text):.3f} ms per "
+        f"iteration; loss {hist[0]['loss']:.5f} -> {hist[-1]['loss']:.5f}; largest change per "
+        f"tensor {min(moved.values()):.3e} .. {max(moved.values()):.3e}")
+    check(all(math.isfinite(h["loss"]) for h in hist) and finite, "appearance run not finite")
+    check(all(v > 0 for v in moved.values()), f"appearance parameters did not move: {moved}")
+    del ts, init
+    torch.cuda.empty_cache()
+
+    # ---- render as a real subprocess ----
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    proc = subprocess.run([sys.executable, "-m", "radegs_torch.scripts.render", "-m", m1,
+                           "--save_depth", "--path_frames", "8"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=900)
+    walls["render"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"render exited {proc.returncode}: {proc.stderr[-2000:]}")
+    sets = {m.group(1): (int(m.group(2)), float(m.group(3))) for m in re.finditer(
+        r"(\w+): wrote (\d+) renders to \S+ in ([\d.]+) s", proc.stdout)}
+    frames = re.search(r"wrote (\d+) orbit frames to \S+ in ([\d.]+) s", proc.stdout)
+    pngs = sorted(glob.glob(os.path.join(m1, "*", "ours_*", "*", "*.png"))
+                  + glob.glob(os.path.join(m1, "video_*", "*.png"))
+                  + glob.glob(os.path.join(ds, "images", "*.png")))
+    n_png = check_pngs(pngs, {"": [(HEIGHT, WIDTH, 3)], "_depth": [(HEIGHT, WIDTH),
+                                                                   (HEIGHT, WIDTH, 3)],
+                              "_normal": [(HEIGHT, WIDTH, 3)]})
+    log(f"phase 8 render (subprocess, exit 0): {walls['render']:.3f} s in all; "
+        + ", ".join(f"{k} {n} views in {s:.3f} s ({s / n:.3f} s per view: render, PNG "
+                    f"writes with depth and normal)" for k, (n, s) in sets.items())
+        + (f", orbit {frames.group(1)} frames in {float(frames.group(2)):.3f} s" if frames
+           else "") + f"; {n_png} PNGs decode to their shapes")
+    check(set(sets) == {"train", "test"} and frames is not None, f"render output: {proc.stdout}")
+    # per train / test view: render, depth, normal, gt; per orbit frame: frame,
+    # depth; the dataset's images
+    check(n_png == 4 * DS_VIEWS + 2 * 8 + DS_VIEWS, f"{n_png} PNGs written")
+
+    # ---- both mesh extractors ----
+    (verts, faces), walls["tsdf"], _ = run_cli(mesh_extract, ["-m", m1, "--max_resolution",
+                                                             "384"], "mesh_extract")
+    band = (2 * DS_JITTER, 2 * DS_JITTER)
+    d_tsdf = float(np.median(surface_distance(verts, band)[0]))
+    (tv, tf), walls["tetra"], _ = run_cli(mesh_extract_tetrahedra, ["-m", m1],
+                                          "mesh_extract_tetrahedra")
+    d_tetra = float(np.median(surface_distance(tv, band)[0]))
+    launches = {**dict(blend.LAUNCHES), **dict(ig.LAUNCHES)}  # the phase 8 path ends here
+    log(f"phase 8 meshes: TSDF {walls['tsdf']:.3f} s, {len(verts)} vertices, {len(faces)} "
+        f"faces, median distance {d_tsdf:.5f}; tetra {walls['tetra']:.3f} s, {len(tv)} "
+        f"vertices, {len(tf)} faces, median distance {d_tetra:.5f} (to the sphere / plane "
+        f"widened by {band[0]}); kernel launches {launches}")
+    check(len(faces) > 10_000 and len(tf) > 10_000, f"meshes: {len(faces)}, {len(tf)} faces")
+    check(d_tsdf < MESH_VIEWS_DIST_TOL and d_tetra < MESH_VIEWS_DIST_TOL,
+          f"mesh distances {d_tsdf}, {d_tetra}")
+    check(all(launches[k] > 0 for k in ("integrate_image", "integrate_points"))
+          and any(v > 0 for k, v in launches.items() if k.startswith("blend_fwd"))
+          and any(v > 0 for k, v in launches.items() if k.startswith("blend_bwd")),
+          f"a kernel never ran on the phase 8 path: {launches}")
+    log("phase 8 wall seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+    return dict(walls=walls, ms_it=ms_it, launches=launches)
+
+
+# ------------------------------------------------------------ phase 9 ----
+
+
+def bisect_bound_ms(probe, start, count, feat):
+    """Least time for a probe's work on these inputs: what it reads (the
+    window columns it sums, once each; for the products the values that
+    reach rows 0..7 of the output), start / count, the (T, 8, 256) output
+    written once; FP32 operations at peak, only those the outputs need: an
+    add per summed value; every column of w and x is f[0, 0:128], so per
+    step mm_highest is 8 dot products of length 128 (2 per multiply-add)
+    and tri_mm the 7 adds of the prefix sum of f[0, 0:8]."""
+    from radegs_torch.ops import bisect
+
+    T = start.shape[0]
+    out_bytes = T * 8 * 256 * 4
+    if probe == "window":
+        start_al, n = bisect.window_bounds(start, count)
+        cols = torch.zeros(feat.shape[1] // bisect.CH, dtype=torch.bool, device=feat.device)
+        for a, k in zip((start_al // bisect.CH).tolist(), n.tolist()):
+            cols[a:a + k] = True
+        n_bytes = int(cols.sum()) * bisect.CH * 25 * 4 + T * 8 + out_bytes
+        ops = int(n.sum()) * bisect.CH * 25
+    elif probe == "aligned":
+        n_bytes, ops = bisect.CH * 25 * 4 + out_bytes, T * bisect.CH * 25
+    elif probe == "mm_highest":
+        n_bytes, ops = 8 * bisect.CH * 4 + out_bytes, T * 8 * bisect.CH * 2
+    else:
+        n_bytes, ops = 8 * 4 + out_bytes, T * 7
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), n_bytes, ops
+
+
+def bisect_library(probe, start, count, feat):
+    """One PyTorch call computing the probe's function (its inputs gathered
+    beforehand): torch.sum over the gathered windows, torch.matmul (TF32
+    off), torch.cumsum."""
+    from radegs_torch.ops import bisect
+
+    if probe == "aligned":
+        win = feat[:, :bisect.CH].contiguous()
+        return lambda: torch.sum(win)
+    if probe == "window":
+        start_al, n = bisect.window_bounds(start, count)
+        g = torch.zeros((start.shape[0], 25, max(int(n.max()), 1) * bisect.CH),
+                        device=feat.device)
+        for t, (a, k) in enumerate(zip(start_al.tolist(), n.tolist())):
+            g[t, :, :k * bisect.CH] = feat[:, a:a + k * bisect.CH]
+        return lambda: torch.sum(g, dim=(1, 2))
+    if probe == "mm_highest":
+        basis = feat[:19, :bisect.CH].contiguous()
+        w = feat[0, :bisect.CH][:, None].expand(bisect.CH, 256).contiguous()
+        return lambda: torch.matmul(basis, w)
+    row = feat[0, :bisect.CH].contiguous()
+    return lambda: torch.cumsum(row, 0)
+
+
+def bisect_probes(res):
+    """Phase 9: the bisect probes through their CLI, held to their plain
+    versions on three start / count sets, timed, then ``window`` at the dense
+    view 0's run layout."""
+    from radegs_torch.ops import bisect
+    from radegs_torch.ops import blend
+    from radegs_torch.ops.rasterize import bin_prep, blend_inputs
+    from radegs_torch.renderer import prepare
+    from radegs_torch.scripts import kernel_bisect as kb
+
+    dev = torch.device(DEVICE)
+    bisect.reset_launches()  # the bisect path starts here
+    failed, wall, text = run_cli(kb, [], "kernel_bisect")
+    launches = dict(bisect.LAUNCHES)  # the bisect path ends here
+    log(f"phase 9 kernel_bisect: {' | '.join(text.strip().splitlines())}; launches {launches}")
+    check(failed == 0 and all(v > 0 for v in launches.values()),
+          f"kernel_bisect: {failed} probes failed, launches {launches}")
+    sets = [(kb.START, kb.COUNT)] + [kb.seeded_set(s) for s in BISECT_SETS]
+    rows = {}
+    for probe in bisect.PROBES:
+        err_max, worst = 0.0, 0.0
+        for st, ct in sets:
+            start, count, feat = kb.inputs(dev, st, ct)
+            err, tol, out = kb.check(probe, start, count, feat)
+            again = bisect.WRAPPERS[probe](start, count, feat)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again), f"bisect {probe} differs between two runs")
+            check(err <= tol, f"bisect {probe} on {st} / {ct}: error {err} above {tol}")
+            err_max, worst = max(err_max, err), max(worst, err / max(tol, 1e-30))
+        start, count, feat = kb.inputs(dev)  # timed at the JAX shapes
+        ms = graph_ms(lambda: bisect.WRAPPERS[probe](start, count, feat), 100)
+        call_ms = time_ms(lambda: bisect.WRAPPERS[probe](start, count, feat), 100)
+        plain_ms = time_ms(lambda: bisect.PLAIN[probe](start, count, feat), 1)
+        library_ms = graph_ms(bisect_library(probe, start, count, feat), 100)
+        bound = bisect_bound_ms(probe, start, count, feat)
+        rows[probe] = dict(err=err_max, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound=bound)
+        log(f"phase 9 bisect {probe}: {len(sets)} start/count sets, max abs err "
+            f"{err_max:.3e} ({worst:.3f} of the tolerance), run == rerun bitwise; kernel "
+            f"{ms:.5f} ms (100 launches in a CUDA graph; {call_ms:.4f} ms per wrapper call "
+            f"from the host), plain {plain_ms:.4f}, library {library_ms:.5f} (graph), bound "
+            f"{bound[0]:.7f} ms by {bound[1]} ({bound[2]} bytes, {bound[3]} FP32 operations)")
+
+    # window at the run layout of the dense view 0: the blend's instances in
+    # sorted order as 25 feature rows, each tile's run streamed in windows
+    state = load_scene(res["dpath"], res["dcap"], mesh_views())
+    with torch.no_grad():
+        prep = prepare(state, mesh_views()[0][0], 0.1)
+        del state
+        binning = bin_prep(prep, WIDTH, HEIGHT, res["dbudget"], 8192, need_tile_gauss=False)
+        inputs = blend_inputs(prep)
+        table = torch.cat([x.reshape(x.shape[0], -1).float() for x in inputs], 1)
+        n_inst = binning.gauss_id.numel()
+        feat = torch.zeros((25, n_inst), device=dev)
+        feat[:table.shape[1]] = table[binning.gauss_id.long()].T
+        feat = bisect.pad_columns(feat)
+        del table
+        start, count = binning.tile_start.contiguous(), binning.tile_count.contiguous()
+        out = bisect.window(start, count, feat)
+        t0 = time.perf_counter()
+        plain = bisect.window_torch(start, count, feat)
+        torch.cuda.synchronize()
+        dplain_ms = (time.perf_counter() - t0) * 1e3
+        derr = float((out - plain).abs().max())
+        dtol = BISECT_REL_TOL * float(bisect.window_torch(start, count, feat.abs()).max())
+        dms = [graph_ms(lambda: bisect.window(start, count, feat), 20) for _ in range(2)]
+        fwd_ms = time_ms(lambda: blend.blend_forward(binning, inputs, WIDTH, HEIGHT), 5)
+        dbound = bisect_bound_ms("window", start, count, feat)
+    log(f"phase 9 window at the dense view 0's run layout: {n_inst} instances ({feat.shape[1]} "
+        f"columns), {start.numel()} tiles, max run {int(count.max())}; kernel ms (2 CUDA "
+        f"graphs of 20 launches) {dms}, bound {dbound[0]:.4f} ms by {dbound[1]} ({dbound[2]} "
+        f"bytes); plain {dplain_ms:.3f} ms, max abs err {derr:.3e} (tolerance {dtol:.3e}); blend_fwd at the "
+        f"same binning {fwd_ms:.4f} ms (5 launches)")
+    check(derr <= dtol, f"dense window: error {derr} above {dtol}")
+    return dict(rows=rows, launches=launches, dense=dict(ms=dms, bound=dbound, fwd_ms=fwd_ms))
+
+
 def profile_serving(workdir):
     """``--profile``: torch.profiler over 3 views of the 100k scene and 1 of
     the dense scene; prints the device time by operation and the device's
@@ -1344,6 +1819,29 @@ def profile_training(workdir):
     prof.export_chrome_trace(os.path.join(os.path.dirname(workdir), "profile_train.json"))
 
 
+def train_ab(workdir):
+    """``--train100k``: phase 3's 100k serving at G=2 and phase 6's 100
+    iterations of the 100k scene, nothing else."""
+    from radegs_torch.models import gaussian_model as gm
+    from radegs_torch.ops import blend
+    from radegs_torch.ops.binning import default_instance_budget
+
+    dev = torch.device(DEVICE)
+    cams = orbit_cameras(N_VIEWS, dev)
+    path = os.path.join(workdir, "scene100k.ply")
+    cap = scene_ply(path, "100k")
+    blend.reset_launches()
+    state = gm.update_3d_filter(
+        gm.load_gaussian_ply(path, sh_degree=3, capacity=cap, device=dev), cams)
+    rows, budget = serve(state, cams, 512, default_instance_budget(cap), 2, "100k G=2",
+                         warmup=WARMUP)
+    report("phase 3 100k 1600x1200 G=2", rows, budget, blend.LAUNCHES["blend_fwd[G=2]"],
+           torch.cuda.max_memory_allocated())
+    del state
+    torch.cuda.empty_cache()
+    train_100k(path, cap, cams, budget)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1361,12 +1859,19 @@ def main():
             profile_serving(tmp)
             profile_training(tmp)
         return
+    if sys.argv[1:] == ["--train100k"]:
+        with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+            train_ab(tmp)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return
     parity = [parity_scene(), parity_scene(250, 190, (1.6, 0, 0))]
     err2 = max(p[0] for p in parity)
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         res = full_scale(tmp)
         tr = training(res)
         mesh = mesh_path(res, tmp)
+        entry_points(tmp, tr)
+        probes = bisect_probes(res)
     kernels = []
     for g, replaces in ((1, "radegs_tpu/ops/pallas_blend.py:263"),
                         (2, "radegs_tpu/ops/pallas_blend_mt.py:73")):
@@ -1401,6 +1906,16 @@ def main():
             "replaces": replaces, "launches": mesh["launches"][name], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": None,
+        })
+    for probe, line in zip(("aligned", "window", "mm_highest", "tri_mm"), (43, 53, 72, 86)):
+        row = probes["rows"][probe]
+        kernels.append({
+            "name": f"bisect_{probe}", "route": "cuda",
+            "source": "radegs_torch/csrc/bisect_probes.cu",
+            "replaces": f"scripts/_kernel_bisect.py:{line}",
+            "launches": probes["launches"][f"bisect_{probe}"], "max_abs_err": row["err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
+            "bound_by": row["bound"][1], "library_ms": row["library_ms"],
         })
     log(f"backward kernel vs plain, max rel err per field over phases 2 and 5: "
         f"{max([p[2] for p in parity] + [res['bwd_rel']]):.3e}")

@@ -9,10 +9,17 @@ so each module's JAX original is found by name:
                  forward and backward blend (hand-written CUDA kernels and
                  their plain PyTorch versions), the differentiable rasterizer
                  around them, SSIM / L1 losses and the KNN scale init.
-- ``models``   — the Gaussian parameter store, densification and PLY I/O.
-- ``train``    — configuration, Adam and the single-card training loop.
+- ``models``   — the Gaussian parameter store, densification, PLY I/O and
+                 the decoupled-appearance network.
+- ``train``    — configuration, argument parsing, Adam and the single-card
+                 training loop.
+- ``mesh``     — TSDF, Marching Tetrahedra, unbounded extraction, culling.
+- ``data``     — COLMAP / Blender readers and the ``Scene``.
+- ``scripts``  — the command-line entry points (``python -m
+                 radegs_torch.scripts.train`` and the others).
 - ``native``   — the nvcc build of the CUDA sources under ``csrc/``.
-- ``utils``    — device selection and a numpy-only PLY reader/writer.
+- ``utils``    — device selection, PLY and PNG I/O (no PIL), checkpoints,
+                 camera paths.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no card and no explicit ``"cpu"`` they raise. This package imports neither

@@ -7,12 +7,21 @@ right, pixel y down (scene/cameras.py:17-84, utils/graphics_utils.py:40-93).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from radegs_torch.utils.device import resolve_device
+
+
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2.0 * math.tan(fov / 2.0))
+
+
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
 
 
 @dataclass(frozen=True)

@@ -53,7 +53,8 @@ def render_depth_maps(state, views, kernel_size, bg, max_per_tile=1024, alpha_th
     """(depth (H, W), w2c (4, 4), K (3, 3)) float32 tensors on the state's
     device per view (mesh_extract.py:49-61): median depth, 0 where the
     rendered alpha is below ``alpha_thres`` or the GT mask below 0.5.
-    ``views``: (camera, gt, index) triples."""
+    ``views``: (camera, gt, index) triples. ``render`` sizes its work
+    buffers from each view's demand (no instance budget is given)."""
     out = []
     for i, (cam, _gt, _idx) in enumerate(views):
         pkg = render(state, cam, bg, kernel_size=kernel_size, max_per_tile=max_per_tile,

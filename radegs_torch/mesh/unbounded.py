@@ -66,7 +66,8 @@ def scene_normalization(cameras):
 def render_rgbd(state, views, kernel_size, bg, max_per_tile=1024, device=None):
     """Per view (rgb (3, H, W) clipped to [0, 1], median depth (H, W) masked
     at alpha < 0.5, full_proj (4, 4)) on the state's device (the
-    reconstruction pass, mesh_utils.py:92-116)."""
+    reconstruction pass, mesh_utils.py:92-116); ``render`` sizes its work
+    buffers from each view's demand."""
     out = []
     for cam, _gt, _i in views:
         pkg = render(state, cam, bg, kernel_size=kernel_size, max_per_tile=max_per_tile,

@@ -223,6 +223,7 @@ def default_instance_budget(num_points: int, multiplier: int = 8, minimum: int =
 
 BUDGET_SEG = 1 << 21  # segment granularity of the JAX package's budget buckets
 MAX_INSTANCE_BUDGET = 1 << 24
+MAX_PER_TILE_CAP = 1 << 14  # the largest max_per_tile the work-buffer policies grow to
 
 
 def round_budget(need: int, minimum: int = 1 << 14) -> int:

@@ -4,16 +4,19 @@ gaussian_renderer/__init__.py:19-195): ``render`` applies the fused Mip
 render() dict; ``integrate`` (and its two halves ``integrate_prepare`` /
 ``integrate_points``) runs the same preprocess with the inverse ray-space
 covariance and the point-opacity integration of ``ops/integrate.py``;
-``mark_visible`` is the frustum test."""
+``mark_visible`` is the frustum test. Without an instance budget, ``render``
+and ``integrate_prepare`` size their work buffers from the view's demand."""
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
 from radegs_torch.core.projection import NEAR_PLANE, preprocess_gaussians
 from radegs_torch.models.gaussian_model import GaussianState
 from radegs_torch.ops import integrate as integrate_op
-from radegs_torch.ops.binning import default_instance_budget
+from radegs_torch.ops.binning import MAX_PER_TILE_CAP, default_instance_budget, round_budget
 from radegs_torch.ops.rasterize import mark, rasterize
 from radegs_torch.utils.device import resolve_device
 
@@ -75,7 +78,15 @@ def render(
     (gaussian_renderer/__init__.py:29-33).
 
     ``events``: a list that receives (stage, torch.cuda.Event) after the
-    preprocess, binning, blend and normalisation stages (CUDA only)."""
+    preprocess, binning, blend and normalisation stages (CUDA only).
+
+    ``instance_budget``: the binning's cap on (Gaussian, tile) pairs. Given,
+    it and ``max_per_tile`` are used as they are (training sizes both with
+    its own autotune). None sizes them from the view's demand: the
+    capacity's default budget first; while the binning drops instances, the
+    view is binned and blended again with the budget and ``max_per_tile``
+    grown to what it measured (``max_per_tile`` up to ``MAX_PER_TILE_CAP``),
+    and a view that still drops instances at the caps raises a warning."""
     camera = _on(device, state, camera)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=state.device)
     mark(events, "start")
@@ -83,11 +94,27 @@ def render(
     if xy_offset is not None:
         prep = prep.replace(xy=prep.xy + xy_offset)
     mark(events, "preprocess")
-    if instance_budget is None:
-        instance_budget = default_instance_budget(state.capacity)
-    return rasterize(prep, camera, bg, max_per_tile=max_per_tile,
-                     instance_budget=instance_budget, tiles_per_block=tiles_per_block,
-                     xy_abs=xy_abs, events=events)
+    grow = instance_budget is None
+    budget = default_instance_budget(state.capacity) if grow else instance_budget
+    while True:
+        out = rasterize(prep, camera, bg, max_per_tile=max_per_tile, instance_budget=budget,
+                        tiles_per_block=tiles_per_block, xy_abs=xy_abs, events=events)
+        if not grow:
+            return out
+        b = out["binning"]
+        n_ovf, t_ovf = int(b.n_overflow), int(b.tile_overflow)
+        # the per-tile demand is measured after the budget's cut: one more
+        # pass when both cut
+        need_budget = round_budget(int(b.n_instances)) if n_ovf else budget
+        need_tile = (min(max(max_per_tile, 1 << (int(b.max_tile_count) - 1).bit_length()),
+                         MAX_PER_TILE_CAP) if t_ovf else max_per_tile)
+        if (need_budget, need_tile) == (budget, max_per_tile):
+            break
+        budget, max_per_tile = need_budget, need_tile
+    if n_ovf or t_ovf:
+        warnings.warn(f"render dropped {n_ovf} instances at the instance budget {budget} and "
+                      f"{t_ovf} at max_per_tile {max_per_tile} (their caps)")
+    return out
 
 
 def mark_visible(state: GaussianState, camera, device=None):
@@ -107,14 +134,19 @@ def integrate_prepare(state: GaussianState, camera, bg, kernel_size: float = 0.0
     ``cuda``): preprocess with the inverse ray-space covariance, radius-only
     binning, the phase-A image and the median plane. Returns (prep, cache)
     for ``integrate_points``, reusable across point sets (the tetra
-    extractor's binary search evaluates 1 + 8 point sets per view)."""
+    extractor's binary search evaluates 1 + 8 point sets per view).
+    Without an ``instance_budget`` the capacity's default is used, and grown
+    to the measured demand where it drops instances."""
     camera = _on(device, state, camera)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=state.device)
     prep = prepare(state, camera, kernel_size, compute_invraycov=True)
-    if instance_budget is None:
-        instance_budget = default_instance_budget(state.capacity)
+    budget = instance_budget or default_instance_budget(state.capacity)
     cache = integrate_op.integrate_view_cache(prep, camera, bg, max_per_tile=max_per_tile,
-                                              instance_budget=instance_budget)
+                                              instance_budget=budget)
+    if instance_budget is None and int(cache["binning"].n_overflow):
+        cache = integrate_op.integrate_view_cache(
+            prep, camera, bg, max_per_tile=max_per_tile,
+            instance_budget=round_budget(int(cache["binning"].n_instances)))
     return prep, cache
 
 

@@ -5,8 +5,10 @@ statistics), and densify / prune / opacity reset on the reference's
 schedule. PyTorch runs eagerly, so plain Python takes the place of the JAX
 package's ``jax.jit``; nothing is wrapped in ``torch.compile``.
 
-Not ported yet (they raise ``NotImplementedError``): decoupled appearance
-(``models/appearance.py``) and the multi-card mesh path (``parallel/``).
+Decoupled appearance (``models/appearance.py``) trains beside the Gaussians
+with the same explicit Adam arithmetic, dense over the whole network and
+embedding table, on the loop's own step count. Not ported yet (it raises
+``NotImplementedError``): the multi-card mesh path (``parallel/``).
 """
 
 from __future__ import annotations
@@ -19,9 +21,15 @@ import torch
 
 from radegs_torch.core.geometry import depth_double_to_normal, point_double_to_normal
 from radegs_torch.models import gaussian_model as gm
+from radegs_torch.models.appearance import (
+    AppearanceNetwork,
+    appearance_transform,
+    init_appearance,
+)
 from radegs_torch.ops.binning import (
     BUDGET_SEG,
     MAX_INSTANCE_BUDGET,
+    MAX_PER_TILE_CAP,
     default_instance_budget,
     round_budget,
 )
@@ -34,28 +42,48 @@ from radegs_torch.train.config import (
     PipelineConfig,
     replace as replace_cfg,
 )
-from radegs_torch.train.optim import GroupLRs, adam_step, expon_lr
+from radegs_torch.train.optim import BETA1, BETA2, EPS, GroupLRs, adam_step, expon_lr
 from radegs_torch.utils.device import resolve_device
 
-APPEARANCE_TODO = ("decoupled appearance (models/appearance.py) is not ported yet: it is a "
-                   "later slice of the port (ROADMAP.md queue A, training follow-ups)")
 MESH_TODO = ("multi-card training (parallel/) is not ported yet: it is the last slice of "
              "the port (ROADMAP.md queue A, parallel/ on torch.distributed)")
 
 
 @dataclass(frozen=True)
 class TrainState:
+    """The Gaussians (with their Adam moments), the appearance parameters
+    and their Adam moments (``{"net": {name: tensor}, "embeddings": tensor}``
+    each, or None without decoupled appearance), and the iteration."""
+
     gaussians: gm.GaussianState
     iteration: int = 0
+    app_params: dict | None = None
+    app_m: dict | None = None
+    app_v: dict | None = None
 
     def replace(self, **kw) -> "TrainState":
         return replace(self, **kw)
 
 
-def init_train_state(gaussians: gm.GaussianState, use_appearance: bool = False) -> TrainState:
-    if use_appearance:
-        raise NotImplementedError(APPEARANCE_TODO)
-    return TrainState(gaussians=gaussians)
+def map_app(fn, *trees):
+    """``fn`` over the tensors of appearance trees of one structure."""
+    return {"net": {k: fn(*(t["net"][k] for t in trees)) for k in trees[0]["net"]},
+            "embeddings": fn(*(t["embeddings"] for t in trees))}
+
+
+def init_train_state(gaussians: gm.GaussianState, use_appearance: bool = False,
+                     height: int = 0, width: int = 0,
+                     generator: torch.Generator | None = None) -> TrainState:
+    """A fresh state; with ``use_appearance`` the appearance network and
+    embeddings are drawn from ``generator`` (default: seeded 0 on the
+    Gaussians' device) and their moments start at zero."""
+    if not use_appearance:
+        return TrainState(gaussians=gaussians)
+    if generator is None:
+        generator = torch.Generator(device=gaussians.device).manual_seed(0)
+    _, app = init_appearance(generator, height, width)
+    return TrainState(gaussians=gaussians, app_params=app,
+                      app_m=map_app(torch.zeros_like, app), app_v=map_app(torch.zeros_like, app))
 
 
 def instance_budget(pcfg: PipelineConfig, capacity: int) -> int:
@@ -68,9 +96,9 @@ def compute_loss(gaussians: gm.GaussianState, app_params, xy_offset, xy_abs, cam
                  gt_image, bg, iteration: int, mcfg: ModelConfig, ocfg: OptimizationConfig,
                  pcfg: PipelineConfig, view_idx: int = 0, events: list | None = None):
     """The loss of train.py:124-162: L1 + D-SSIM, plus the depth-normal
-    consistency term from ``regularization_from_iter`` on. Returns (loss, aux)."""
-    if mcfg.use_decoupled_appearance or app_params is not None:
-        raise NotImplementedError(APPEARANCE_TODO)
+    consistency term from ``regularization_from_iter`` on. With decoupled
+    appearance the L1 term compares the transformed centre crop with the gt
+    crop; SSIM and PSNR stay on the raw image. Returns (loss, aux)."""
     out = render(gaussians, camera, bg, kernel_size=mcfg.kernel_size,
                  max_per_tile=pcfg.max_per_tile,
                  instance_budget=instance_budget(pcfg, gaussians.capacity),
@@ -78,7 +106,12 @@ def compute_loss(gaussians: gm.GaussianState, app_params, xy_offset, xy_abs, cam
                  xy_offset=xy_offset, xy_abs=xy_abs)
     mark(events, "render")
     image = out["render"]
-    ll1 = l1_loss(image, gt_image)
+    if mcfg.use_decoupled_appearance and app_params is not None:
+        transformed, (top, left, Hc, Wc) = appearance_transform(
+            AppearanceNetwork(), app_params, image, view_idx)
+        ll1 = l1_loss(transformed, gt_image[:, top:top + Hc, left:left + Wc])
+    else:
+        ll1 = l1_loss(image, gt_image)
 
     # normal-consistency regularisation (train.py:141-155)
     reg_on = float(iteration >= ocfg.regularization_from_iter)
@@ -126,9 +159,11 @@ def make_train_step(mcfg: ModelConfig, ocfg: OptimizationConfig, pcfg: PipelineC
         it = ts.iteration + 1
         mark(events, "start")
         params = g.params.map(lambda x: x.detach().requires_grad_(True))
+        app = (None if ts.app_params is None else
+               map_app(lambda x: x.detach().requires_grad_(True), ts.app_params))
         xy_offset = torch.zeros((g.capacity, 2), device=g.device, requires_grad=True)
         xy_abs = torch.zeros((g.capacity, 2), device=g.device, requires_grad=True)
-        loss, aux = compute_loss(g.replace(params=params), None, xy_offset, xy_abs, camera,
+        loss, aux = compute_loss(g.replace(params=params), app, xy_offset, xy_abs, camera,
                                  gt_image, bg, it, mcfg, ocfg, pcfg, view_idx, events=events)
         loss.backward()
         mark(events, "backward")
@@ -145,6 +180,9 @@ def make_train_step(mcfg: ModelConfig, ocfg: OptimizationConfig, pcfg: PipelineC
                 opacity=ocfg.opacity_lr, scaling=ocfg.scaling_lr, rotation=ocfg.rotation_lr)
             grads = params.map(lambda x: torch.zeros_like(x) if x.grad is None else x.grad)
             g = adam_step(g, grads, lrs)
+            app_state = {}
+            if app is not None:
+                app_state = appearance_adam(app, ts.app_m, ts.app_v, it, ocfg)
             mark(events, "adam")
 
             # densification statistics (train.py:186-188): the screen
@@ -155,9 +193,31 @@ def make_train_step(mcfg: ModelConfig, ocfg: OptimizationConfig, pcfg: PipelineC
                                            aux["visibility"])
             g = gm.update_max_radii(g, aux["radii"], aux["visibility"])
             mark(events, "stats")
-        return ts.replace(gaussians=g, iteration=it), {k: aux[k] for k in METRICS}
+        return ts.replace(gaussians=g, iteration=it, **app_state), {k: aux[k] for k in METRICS}
 
     return train_step
+
+
+def appearance_adam(app, app_m, app_v, it: int, ocfg: OptimizationConfig) -> dict:
+    """The appearance Adam of loop.py:181-202: dense over every tensor (rows
+    of the embedding table that got no gradient still move with their
+    moments), bias corrections in float32 from the loop's step ``it``.
+    ``app``: the parameters after backward (``.grad`` set or None)."""
+    bc1 = float(1.0 - torch.tensor(BETA1, dtype=torch.float32) ** it)
+    bc2 = float(1.0 - torch.tensor(BETA2, dtype=torch.float32) ** it)
+
+    def upd(p, m, v, lr):
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        m = BETA1 * m + (1 - BETA1) * g
+        v = BETA2 * v + (1 - BETA2) * g * g
+        return p.detach() - lr * (m / bc1) / (torch.sqrt(v / bc2) + EPS), m, v
+
+    net = {k: upd(app["net"][k], app_m["net"][k], app_v["net"][k], ocfg.appearance_network_lr)
+           for k in app["net"]}
+    emb = upd(app["embeddings"], app_m["embeddings"], app_v["embeddings"],
+              ocfg.appearance_embeddings_lr)
+    return {key: {"net": {k: v[i] for k, v in net.items()}, "embeddings": emb[i]}
+            for i, key in enumerate(("app_params", "app_m", "app_v"))}
 
 
 def densify_step(g: gm.GaussianState, generator, max_grad, min_opacity, extent,
@@ -182,7 +242,7 @@ def autotune_pipeline(pcfg: PipelineConfig, n_ovf: float, t_ovf: float, window_p
     instance budget on overflow (to 1.3x the window's peak demand, and at
     least 1.5x), shrink it when the peak leaves it oversized by at least a
     segment and 15%, and double ``max_per_tile`` on a tile overflow (up to
-    16384). Returns (new_pcfg, changed)."""
+    ``MAX_PER_TILE_CAP``). Returns (new_pcfg, changed)."""
     changed = False
     budget = instance_budget(pcfg, capacity)
     target = round_budget(window_peak * 1.3)
@@ -201,7 +261,7 @@ def autotune_pipeline(pcfg: PipelineConfig, n_ovf: float, t_ovf: float, window_p
         print(f"[radegs] budget underused (peak {window_peak:.0f}/{budget}): "
               f"shrinking to {target}", flush=True)
         changed = True
-    if t_ovf > 0 and pcfg.max_per_tile < 16384:
+    if t_ovf > 0 and pcfg.max_per_tile < MAX_PER_TILE_CAP:
         pcfg = replace_cfg(pcfg, max_per_tile=pcfg.max_per_tile * 2)
         print(f"[radegs] tile overflow ({t_ovf:.0f}): growing max_per_tile to "
               f"{pcfg.max_per_tile}", flush=True)
@@ -233,7 +293,9 @@ def train(
     ``device``: default ``cuda`` (raises without a card); the Gaussian state
     must live there. Views are drawn as the JAX package draws them
     (``numpy.random.default_rng(seed)`` permutations); the densify draws come
-    from a ``torch.Generator`` seeded with ``seed``.
+    from a ``torch.Generator`` seeded with ``seed``, the appearance network's
+    initialisation (``mcfg.use_decoupled_appearance``) from one seeded with
+    ``seed + 1``.
     ``step_events``: a list that receives, per iteration, the step's list of
     (stage, torch.cuda.Event) marks, followed by "densify" / "reset_opacity"
     marks on the iterations that ran them (CUDA only).
@@ -241,8 +303,6 @@ def train(
     at every ``log_every``-th iteration and the last."""
     if mesh is not None:
         raise NotImplementedError(MESH_TODO)
-    if mcfg.use_decoupled_appearance:
-        raise NotImplementedError(APPEARANCE_TODO)
     dev = resolve_device(device)
     if gaussians.device.type != dev.type:
         raise ValueError(f"the Gaussian state lives on {gaussians.device}, not on {dev}")
@@ -251,7 +311,14 @@ def train(
     cam_list = [c[0] for c in cameras]
     generator = torch.Generator(device=dev).manual_seed(seed)
 
-    ts = resume_state if resume_state is not None else init_train_state(gaussians)
+    if resume_state is not None:
+        ts = resume_state
+    elif mcfg.use_decoupled_appearance:
+        cam0 = cam_list[0]
+        ts = init_train_state(gaussians, True, cam0.height, cam0.width,
+                              generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    else:
+        ts = init_train_state(gaussians)
     bg = torch.full((3,), 1.0 if mcfg.white_background else 0.0, device=dev)
     if mcfg.disable_filter3D:
         ts = ts.replace(gaussians=gm.reset_3d_filter(ts.gaussians))

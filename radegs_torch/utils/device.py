@@ -19,3 +19,10 @@ def resolve_device(device=None) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def add_device_arg(parser):
+    """``--device {cuda,cpu}`` of the command-line entry points (default
+    ``cuda``, which raises without a card)."""
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="where to run (cpu only on request; cuda needs a card)")

@@ -1,0 +1,153 @@
+"""The bisect probes (``radegs_torch/ops/bisect.py``) against the JAX
+package's four Pallas probe kernels (``scripts/_kernel_bisect.py``) run in
+interpret mode on the CPU, on the script's own start / count and two seeded
+sets (an empty step, unaligned starts, a window ending on the last column).
+
+The script is loaded with ``ast``: its four module-level ``run(...)`` calls
+are dropped, and its grid spec is taken from the ``grid_spec = ...``
+statement of ``run``, so the kernels run with the script's own spec.
+Tolerance: abs 1e-5 x the sum of |terms| of each output (per step for the
+window sums; the largest row's |products| for ``mm_highest``).
+"""
+
+import ast
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from radegs_torch.ops import bisect
+from radegs_torch.scripts import kernel_bisect as kb
+
+torch.set_num_threads(1)
+SCRIPT = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "_kernel_bisect.py"
+KERNELS = {"aligned": "k_aligned", "window": "k_window", "mm_highest": "k_mm_highest",
+           "tri_mm": "k_tri_mm"}
+SETS = [(kb.START, kb.COUNT), kb.seeded_set(1), kb.seeded_set(2)]
+REL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def script():
+    """The script's namespace (without its run(...) calls) and grid spec."""
+    tree = ast.parse(SCRIPT.read_text(), filename=str(SCRIPT))
+    tree.body = [n for n in tree.body
+                 if not (isinstance(n, ast.Expr) and isinstance(n.value, ast.Call)
+                         and getattr(n.value.func, "id", None) == "run")]
+    ns = {}
+    exec(compile(tree, str(SCRIPT), "exec"), ns)
+    run = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "run")
+    assign = next(n for n in ast.walk(run) if isinstance(n, ast.Assign)
+                  and getattr(n.targets[0], "id", None) == "grid_spec")
+    expr = ast.fix_missing_locations(ast.Expression(assign.value))
+    return ns, eval(compile(expr, str(SCRIPT), "eval"), ns)
+
+
+def jax_probe(script, probe, start, count, feat):
+    ns, grid_spec = script
+    T = ns["T"]
+    return np.asarray(pl.pallas_call(
+        ns[KERNELS[probe]], out_shape=jax.ShapeDtypeStruct((T, 8, 256), jnp.float32),
+        grid_spec=grid_spec, interpret=True)(jnp.asarray(start, jnp.int32),
+                                             jnp.asarray(count, jnp.int32), jnp.asarray(feat)))
+
+
+def tolerance(probe, start, count, feat):
+    """abs 1e-5 x sum |terms| of every output, broadcast to (T, 8, 256)."""
+    a = np.abs(feat)
+    T = len(start)
+    if probe == "aligned":
+        tol = np.full(T, a[:, :128].sum())
+    elif probe == "window":
+        tol = bisect.window_torch(torch.tensor(start), torch.tensor(count),
+                                  torch.from_numpy(a))[:, 0, 0].numpy()
+    elif probe == "tri_mm":
+        return REL * np.broadcast_to(np.cumsum(a[0, :8])[None, :, None], (T, 8, 256))
+    else:
+        return REL * np.broadcast_to((a[:8, :128] * a[0, :128]).sum(1)[None, :, None],
+                                     (T, 8, 256))
+    return REL * np.broadcast_to(tol[:, None, None], (T, 8, 256))
+
+
+@pytest.mark.parametrize("probe", list(KERNELS))
+@pytest.mark.parametrize("case", range(len(SETS)))
+def test_plain_probe_matches_pallas_interpret(script, probe, case):
+    start, count = SETS[case]
+    t_start, t_count, t_feat = kb.inputs("cpu", start, count)
+    feat = t_feat.numpy()
+    want = jax_probe(script, probe, start, count, feat)
+    got = bisect.PLAIN[probe](t_start, t_count, t_feat).numpy()
+    assert got.shape == want.shape == (4, 8, 256)
+    assert (np.abs(got - want) <= tolerance(probe, start, count, feat)).all()
+    if probe == "window" and case > 0:
+        assert 0 in count and any(s % 128 for s in start)
+        assert any(s + c == kb.B for s, c in zip(start, count))
+
+
+def test_seeded_sets_cover_the_edges():
+    for start, count in SETS[1:]:
+        start_al, n = bisect.window_bounds(torch.tensor(start), torch.tensor(count))
+        assert int(n[0]) == 0 and int((start_al + n * 128).max()) == kb.B
+        assert all(0 <= s and s + c <= kb.B for s, c in zip(start, count))
+
+
+def test_wrappers_on_cpu_run_the_plain_versions_and_count_nothing():
+    bisect.reset_launches()
+    start, count, feat = kb.inputs("cpu")
+    for probe in bisect.PROBES:
+        assert torch.equal(bisect.WRAPPERS[probe](start, count, feat),
+                           bisect.PLAIN[probe](start, count, feat))
+    assert all(v == 0 for v in bisect.LAUNCHES.values())
+
+
+def test_kernel_bisect_cli_on_cpu(capsys):
+    assert kb.main(["--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [ln.split(":")[1].strip() for ln in lines] == ["OK"] * 4
+
+
+def test_pad_columns_and_window_bounds():
+    feat = torch.ones((25, 300))
+    padded = bisect.pad_columns(feat)
+    assert padded.shape == (25, 384) and float(padded[:, 300:].abs().sum()) == 0.0
+    start_al, n = bisect.window_bounds(torch.tensor([0, 127, 128, 5]),
+                                       torch.tensor([1, 2, 128, 0]))
+    assert start_al.tolist() == [0, 0, 128, 0] and n.tolist() == [1, 2, 1, 0]
+
+
+OUTSIDE = ([0, -5, 1000, 900], [10, 3, 100, 0])  # ok, negative start, past the end, empty
+
+
+def test_window_steps_outside_the_matrix_are_nan():
+    start, count, feat = kb.inputs("cpu", *OUTSIDE)
+    out = bisect.window(start, count, feat)
+    assert torch.isnan(out[1:3]).all() and torch.isfinite(out[[0, 3]]).all()
+    assert float(out[0, 0, 0]) == pytest.approx(float(feat[:, :128].sum()), rel=1e-6)
+    assert float(out[3].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_window_kernel_writes_nan_outside_the_matrix():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    start, count, feat = kb.inputs("cuda", *OUTSIDE)
+    out = bisect.window(start, count, feat)
+    plain = bisect.window_torch(start, count, feat)
+    assert torch.equal(torch.isnan(out), torch.isnan(plain))
+    assert (out[[0, 3]] - plain[[0, 3]]).abs().max() <= 1e-5 * float(feat[:, :128].abs().sum())
+
+
+@pytest.mark.cuda
+def test_probe_kernels_match_plain_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for start, count in SETS:
+        s, c, f = kb.inputs("cuda", start, count)
+        for probe in bisect.PROBES:
+            err, tol, out = kb.check(probe, s, c, f)
+            assert err <= tol, (probe, err, tol)
+            assert torch.equal(out, bisect.WRAPPERS[probe](s, c, f))

@@ -400,10 +400,10 @@ def test_training_improves_psnr():
 
 
 def test_unported_options_raise():
+    # decoupled appearance is ported (tests/test_torch_appearance.py); the
+    # multi-card path is not
     ts = tgm.empty_state(64, device="cpu")
     scene = tloop.SceneLike(cameras=[], extent=1.0)
-    with pytest.raises(NotImplementedError, match="appearance"):
-        tloop.train(scene, ts, ModelConfig(use_decoupled_appearance=True), device="cpu")
     with pytest.raises(NotImplementedError, match="parallel"):
         tloop.train(scene, ts, mesh=object(), device="cpu")
 
