@@ -69,10 +69,12 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
       per view and ``integrate_points`` at least 9 x 8 times.
    d. The kernels alone at the dense view 0 (radius-only binning, budget from
       the measured demand): B5 20 launches, B6 20 launches over 1M jittered
-      surface points; each plain version once (B5 on the full view, B6 on a
-      seeded 16k-point subset) and each kernel's bound. The 1M launch must
-      equal the subset's launch bitwise on the subset, with tiles of more
-      than 256 points and subset points in their later work items.
+      surface points, then 10 over seeded subsets of 7c's point counts (the
+      seeds of its first SDF pass, the crossing edges of each later one);
+      each plain version once (B5 on the full view, B6 on a seeded 16k-point
+      subset) and each kernel's bound. The 1M launch must equal the subset's
+      launch bitwise on the subset, with tiles of more than 256 points and
+      subset points in their later work items.
    e. The witness of the geometric checks: the 50k scene of 7c without its
       noise (capacity 2^18, so the default render budget covers the demand).
       TSDF (at max_resolution 384: cut from 7b's 768 for time) and tetra as
@@ -101,19 +103,29 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
    the blend and integrate kernels ran. Wall seconds per step.
 9. The bisect probes (``radegs_torch/scripts/kernel_bisect.py``, launch
    counts set to 0 before and read after): each of the four kernels of
-   ``csrc/bisect_probes.cu`` held to its plain version at the JAX shapes
-   and on seeded start / count sets (count 0, unaligned starts, windows
-   ending on the last column), bit-identical run to run, timed over 100
-   launches in a CUDA graph (the kernel alone) against its plain version, a
-   library call (also in a graph) and its bound; then ``window`` at the run
-   layout of the dense view 0 against its bytes bound.
+   ``csrc/bisect_probes.cu`` held to its plain version at the JAX shapes,
+   on seeded start / count sets (count 0, unaligned starts, windows ending
+   on the last column), on steps that leave the matrix (NaN on the same
+   steps) and on the long-run set (steps of 0, 1, 3, 4, 5 and 64 windows in
+   25 x 8192: the ring's refills and phase flips), bit-identical run to run
+   (a sha256 of the outputs printed, to compare two checkouts), timed over
+   100 launches in a CUDA graph (the kernel alone) against its plain
+   version, a library call (also in a graph) and its bound, and per wrapper
+   call from the host (``call_ms``, with the host cost of each piece of a
+   wrapper call); then ``window`` at the run layout of the dense view 0
+   against its bytes bound, beside the bytes it asks for, the same steps
+   with the longest runs first, ``torch.sum`` over the matrix, and the
+   kernel built with other ring depths (``WINDOW_VARIANTS``; also timed at
+   the JAX shapes).
 
 ``python3 chip_smoke.py --profile`` instead runs the setup and a
 torch.profiler pass over both scenes' serving and over 5 training
 iterations of the 100k scene (device time by operation, busy share).
 ``python3 chip_smoke.py --train100k`` runs only phase 3's 100k serving at
-G=2 and phase 6's 100 iterations of the 100k scene: copied into a checkout
-of another commit and run there, it compares the two in one call.
+G=2 and phase 6's 100 iterations of the 100k scene, and ``python3
+chip_smoke.py --probes`` only phase 9 (on the dense scene it writes and
+bins as phase 4 does): copied into a checkout of another commit and run
+there, either compares the two in one call.
 
 Every phase that fails raises, and the script exits non-zero without the
 result lines. The last three lines are the card's name and power limit, a
@@ -123,6 +135,7 @@ JSON object with a ``kernels`` list, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import math
@@ -201,6 +214,15 @@ PSNR_GAIN = 3.0  # dB, test PSNR at 300 over that at 1
 # phase 9: the bisect probes
 BISECT_REL_TOL = 1e-5  # x sum |terms| (sums, prefix sum) or x max |plain| (product)
 BISECT_SETS = (1, 2)  # seeds of the extra start / count sets
+BISECT_OUTSIDE = ([0, -5, 1000, 900], [10, 3, 100, 0])  # NaN: a negative start, past the end
+# the long-run set of `window`: steps of 0, 1, 3, 4, 5 and 64 windows in a
+# (25, 8192) matrix (a ring of S = 3 or 4 windows, S + 1, and many refills);
+# the 64-window step starts unaligned and ends on the last column
+LONG_RUN_B, LONG_RUN_WINDOWS = 8192, (0, 1, 3, 4, 5, 64)
+LONG_RUN = ([1000, 300, 1100, 2100, 4000, 5], [0, 50, 300, 400, 600, 8187])
+# window kernels built beside the one in the source (S = 8), timed with it:
+# the other depths of its ring
+WINDOW_VARIANTS = {f"S={k}": {"STAGES": k} for k in (2, 3, 4, 6, 12, 16)}
 
 
 def check(cond, msg):
@@ -297,6 +319,11 @@ def compare(kernel, plain):
 
 def bit_identical(a, b):
     return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def same_bits(a, b):
+    """Two float32 tensors equal bit for bit, NaN included."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def time_ms(fn, reps):
@@ -1210,9 +1237,10 @@ def mesh_witness(workdir):
                 cull=dict(wall=t_cull, n_faces=len(cf), n_kept=len(pf)))
 
 
-def integrate_alone(res):
+def integrate_alone(res, sdf_points=()):
     """Phase 7d: the integrate kernels alone at the dense view 0 (launches
-    here are not counted)."""
+    here are not counted); B6 also over seeded subsets of the 1M points of
+    the sizes in ``sdf_points`` (phase 7c's SDF passes)."""
     from radegs_torch.ops import integrate as ig
     from radegs_torch.ops.binning import bin_gaussians, round_budget
     from radegs_torch.renderer import prepare
@@ -1290,6 +1318,19 @@ def integrate_alone(res):
             timing.setdefault(name, []).append(time_ms(fn, 10))
         ib = integrate_bound_ms("image", P, n_inst, T, 0, iwork)
         pb = integrate_bound_ms("points", P, n_inst, T, int(pts.valid.sum()), pwork)
+        # B6 at the point counts the extractions launch it on, the work
+        # counted as for the 1M points
+        small = []
+        for k in sdf_points:
+            idx = torch.from_numpy(np.sort(rng.permutation(N)[:k])).to(dev)
+            pk = ig.PointProjection(*(f[idx] for f in pts))
+            ms_k = time_ms(lambda: ig.integrate_points_alpha(binning, pfeat, pk, W, H), 10)
+            pairs_k = int(counts[pk.tile[pk.valid]].sum())
+            share_k = pairs_k / max(int(pwork_sub["n_pairs"]), 1)
+            work_k = {"n_pairs": pairs_k, **{key: int(v) * share_k for key, v in pwork_sub.items()
+                                             if key != "n_pairs"}}
+            small.append((k, ms_k, integrate_bound_ms("points", P, n_inst, T,
+                                                      int(pk.valid.sum()), work_k)[0]))
     log(f"phase 7d integrate kernels alone at the dense view 0: {n_inst} instances "
         f"(radius-only demand {need}, budget {budget}), max per tile "
         f"{int(binning.max_tile_count)}, tile_overflow {int(binning.tile_overflow)}; "
@@ -1303,7 +1344,8 @@ def integrate_alone(res):
         f"bound {pb[0]:.4f} ms by {pb[1]} ({pb[2]} bytes, {pb[3]} FP32 operations; work "
         f"{dict((k, int(v)) for k, v in pwork.items())}); subset alpha err {a_err:.3e}; the "
         f"1M launch equals the subset's launch bitwise: {split_same} ({n_later} of the "
-        f"subset's points in a later work item of their tile)")
+        f"subset's points in a later work item of their tile); at the SDF passes' point "
+        f"counts (points, ms of 10 launches, bound ms): {small}")
     check(img_err <= ABS_TOL and a_err <= ABS_TOL, f"7d kernel vs plain: {img_err}, {a_err}")
     check(flips <= MED_POS_TOL and med_err == 0.0, f"7d median flips {flips}, err {med_err}")
     check(max_tile_pts > ig.POINTS_PER_ITEM and n_later > 0,
@@ -1311,7 +1353,7 @@ def integrate_alone(res):
     check(split_same, "7d: the 1M-point launch differs from the subset's launch")
     return dict(img_ms=float(np.median(timing["image"])), pt_ms=float(np.median(timing["points"])),
                 img_plain_ms=img_plain_ms, pt_plain_ms=pt_plain_ms, img_bound=ib, pt_bound=pb,
-                img_err=img_err, a_err=a_err)
+                img_err=img_err, a_err=a_err, pt_small=small)
 
 
 def mesh_path(res, workdir):
@@ -1341,7 +1383,8 @@ def mesh_path(res, workdir):
     log(f"mesh path kernel launches: {launches}")
     check(all(ig.LAUNCHES[k] > 0 for k in ig.LAUNCHES), f"an integrate kernel never ran on "
           f"the mesh path: {launches}")
-    alone = integrate_alone(res)
+    alone = integrate_alone(res, (tetra["stats"]["n_seeds_decimated"],
+                                  tetra["stats"]["n_crossing"]))
     return dict(parity=parity, tsdf=tsdf, tetra=tetra, witness=witness, launches=launches,
                 alone=alone)
 
@@ -1653,9 +1696,128 @@ def bisect_library(probe, start, count, feat):
     return lambda: torch.cumsum(row, 0)
 
 
+def probe_held(probe, out, plain, start, count, feat):
+    """Max abs error of a probe kernel's output against its plain version
+    and its largest share of the tolerance: BISECT_REL_TOL x the sum of
+    |terms| of each output (per step for the window sums, per row for the
+    prefix sum), x max |plain| for mm_highest. Fails unless both put NaN on
+    the same steps."""
+    from radegs_torch.ops import bisect
+
+    a = feat.abs()
+    if probe == "window":
+        tol = bisect.window_torch(start, count, a)
+    elif probe == "tri_mm":
+        tol = torch.cumsum(a[0, :8], 0)[None, :, None].expand_as(plain)
+    elif probe == "aligned":
+        tol = a[:, :bisect.CH].sum().expand_as(plain)
+    else:
+        tol = bisect.mm_highest_torch(start, count, feat).abs().max().expand_as(plain)
+    nan = torch.isnan(plain)
+    check(torch.equal(torch.isnan(out), nan), f"bisect {probe}: NaN on other steps than plain")
+    diff = (out - plain).abs()[~nan]
+    if diff.numel() == 0:
+        return 0.0, 0.0
+    share = diff / (BISECT_REL_TOL * tol[~nan]).clamp_min(1e-30)
+    return float(diff.max()), float(share.max())
+
+
+def window_variants(variants):
+    """The window kernel built from copies of csrc/bisect_probes.cu, one per
+    variant ({constant: value} replacing the source's ``constexpr ...
+    <constant> = ...;``), compiled with build.py's flags all at once into
+    build/chip_smoke/ and bound with ctypes. Returns {name: function
+    (start, count, feat) -> out}, or {} for a source without the ring."""
+    import ctypes
+
+    from radegs_torch.native import build
+
+    src = (build.CSRC / "bisect_probes.cu").read_text()
+    if "constexpr int STAGES" not in src:
+        return {}
+    jobs = {}
+    for name, consts in variants.items():
+        text = src
+        for const, value in consts.items():
+            pat = re.compile(rf"(constexpr \w+ {const} = )[^;]+;")
+            check(pat.search(text) is not None, f"no constant {const} in bisect_probes.cu")
+            text = pat.sub(rf"\g<1>{value};", text)
+        d = os.path.join(ROOT, "build", "chip_smoke", re.sub(r"\W+", "_", name))
+        os.makedirs(d, exist_ok=True)
+        cu, so = os.path.join(d, "bisect_probes.cu"), os.path.join(d, "bisect_probes.so")
+        with open(cu, "w") as f:
+            f.write(text)
+        jobs[name] = so, subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", so, cu],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True)
+    kernels = {}
+    for name, (so, proc) in jobs.items():
+        log_text = proc.communicate()[0]
+        check(proc.returncode == 0, f"window variant {name} failed to build:\n{log_text}")
+        fn = ctypes.CDLL(so).radegs_bisect_probes
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def window(start, count, feat, fn=fn, name=name):
+            out = torch.empty((start.shape[0], 8, 256), device=feat.device)
+            rc = fn(start.data_ptr(), count.data_ptr(), feat.data_ptr(), out.data_ptr(), 1,
+                    start.shape[0], feat.shape[1], torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"window variant {name} launch failed with CUDA error {rc}")
+            return out
+
+        kernels[name] = window
+    return kernels
+
+
+def wrapper_costs(start, count, feat, reps=500):
+    """Host microseconds per call of each piece a probe wrapper call may
+    pay (the checks, the entry lookup, a device switch, the stream lookup,
+    the output allocation, the launch), then of the whole wrapper call, for
+    ``aligned`` at the JAX shapes."""
+    from radegs_torch.native import build
+    from radegs_torch.ops import bisect
+
+    dev = feat.device
+    T, B = start.shape[0], feat.shape[1]
+    fn = build.entry("bisect_probes", 4, 3)
+    out = torch.empty((T, 8, 256), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def checks():
+        build.check_tensor("start", start, torch.int32, (T,), dev)
+        build.check_tensor("count", count, torch.int32, (T,), dev)
+        build.check_tensor("feat", feat, torch.float32, (25, B), dev)
+
+    def switch():
+        with torch.cuda.device(dev):
+            pass
+
+    pieces = {
+        "check_tensor x3": checks,
+        "build.entry": lambda: build.entry("bisect_probes", 4, 3),
+        "torch.cuda.device": switch,
+        "current_device": torch.cuda.current_device,
+        "current_stream(dev)": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "torch.empty": lambda: torch.empty((T, 8, 256), dtype=torch.float32, device=dev),
+        "launch": lambda: fn(start.data_ptr(), count.data_ptr(), feat.data_ptr(),
+                             out.data_ptr(), 0, T, B, stream),
+        "wrapper call": lambda: bisect.aligned(start, count, feat),
+    }
+    us = {}
+    for name, piece in pieces.items():
+        piece()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            piece()
+        us[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    return us
+
+
 def bisect_probes(res):
     """Phase 9: the bisect probes through their CLI, held to their plain
-    versions on three start / count sets, timed, then ``window`` at the dense
+    versions on five start / count sets, timed, then ``window`` at the dense
     view 0's run layout."""
     from radegs_torch.ops import bisect
     from radegs_torch.ops import blend
@@ -1670,31 +1832,48 @@ def bisect_probes(res):
     log(f"phase 9 kernel_bisect: {' | '.join(text.strip().splitlines())}; launches {launches}")
     check(failed == 0 and all(v > 0 for v in launches.values()),
           f"kernel_bisect: {failed} probes failed, launches {launches}")
-    sets = [(kb.START, kb.COUNT)] + [kb.seeded_set(s) for s in BISECT_SETS]
+    long_feat = torch.from_numpy(np.random.default_rng(0).normal(size=(25, LONG_RUN_B))
+                                 .astype(np.float32)).to(dev)
+    sets = [kb.inputs(dev, st, ct) for st, ct in
+            [(kb.START, kb.COUNT)] + [kb.seeded_set(s) for s in BISECT_SETS] + [BISECT_OUTSIDE]]
+    sets.append(tuple(torch.tensor(x, dtype=torch.int32, device=dev) for x in LONG_RUN)
+                + (long_feat,))
+    start_al, n = bisect.window_bounds(*sets[-1][:2])
+    check(n.tolist() == list(LONG_RUN_WINDOWS) and int((start_al + n * 128).max()) == LONG_RUN_B,
+          f"long-run set: windows {n.tolist()}")
     rows = {}
     for probe in bisect.PROBES:
-        err_max, worst = 0.0, 0.0
-        for st, ct in sets:
-            start, count, feat = kb.inputs(dev, st, ct)
-            err, tol, out = kb.check(probe, start, count, feat)
+        err_max, worst, h = 0.0, 0.0, hashlib.sha256()
+        for start, count, feat in sets:
+            out = bisect.WRAPPERS[probe](start, count, feat)
             again = bisect.WRAPPERS[probe](start, count, feat)
+            plain = bisect.PLAIN[probe](start, count, feat)
             torch.cuda.synchronize()
-            check(torch.equal(out, again), f"bisect {probe} differs between two runs")
-            check(err <= tol, f"bisect {probe} on {st} / {ct}: error {err} above {tol}")
-            err_max, worst = max(err_max, err), max(worst, err / max(tol, 1e-30))
+            check(same_bits(out, again), f"bisect {probe} differs between two runs")
+            err, share = probe_held(probe, out, plain, start, count, feat)
+            check(share <= 1.0, f"bisect {probe} on {start.tolist()} / {count.tolist()}: error "
+                  f"{err} at {share} of the tolerance")
+            err_max, worst = max(err_max, err), max(worst, share)
+            h.update(out.cpu().numpy().tobytes())
         start, count, feat = kb.inputs(dev)  # timed at the JAX shapes
         ms = graph_ms(lambda: bisect.WRAPPERS[probe](start, count, feat), 100)
-        call_ms = time_ms(lambda: bisect.WRAPPERS[probe](start, count, feat), 100)
+        call_ms = float(np.median([time_ms(lambda: bisect.WRAPPERS[probe](start, count, feat),
+                                           200) for _ in range(3)]))
         plain_ms = time_ms(lambda: bisect.PLAIN[probe](start, count, feat), 1)
         library_ms = graph_ms(bisect_library(probe, start, count, feat), 100)
         bound = bisect_bound_ms(probe, start, count, feat)
-        rows[probe] = dict(err=err_max, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                           bound=bound)
-        log(f"phase 9 bisect {probe}: {len(sets)} start/count sets, max abs err "
-            f"{err_max:.3e} ({worst:.3f} of the tolerance), run == rerun bitwise; kernel "
-            f"{ms:.5f} ms (100 launches in a CUDA graph; {call_ms:.4f} ms per wrapper call "
-            f"from the host), plain {plain_ms:.4f}, library {library_ms:.5f} (graph), bound "
-            f"{bound[0]:.7f} ms by {bound[1]} ({bound[2]} bytes, {bound[3]} FP32 operations)")
+        rows[probe] = dict(err=err_max, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound=bound)
+        log(f"phase 9 bisect {probe}: {len(sets)} start/count sets (the last: windows "
+            f"{list(LONG_RUN_WINDOWS)} in {LONG_RUN_B} columns), max abs err {err_max:.3e} "
+            f"({worst:.3f} of the tolerance), run == rerun bitwise, outputs sha256 "
+            f"{h.hexdigest()[:16]}; kernel {ms:.5f} ms (100 launches in a CUDA graph), call_ms "
+            f"{call_ms:.5f} (per wrapper call from the host, median of 3 x 200), plain "
+            f"{plain_ms:.4f}, library {library_ms:.5f} (graph), bound {bound[0]:.7f} ms by "
+            f"{bound[1]} ({bound[2]} bytes, {bound[3]} FP32 operations)")
+    costs = wrapper_costs(*kb.inputs(dev))
+    log("phase 9 probe wrapper pieces, host us per call: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in costs.items()))
 
     # window at the run layout of the dense view 0: the blend's instances in
     # sorted order as 25 feature rows, each tile's run streamed in windows
@@ -1716,18 +1895,67 @@ def bisect_probes(res):
         plain = bisect.window_torch(start, count, feat)
         torch.cuda.synchronize()
         dplain_ms = (time.perf_counter() - t0) * 1e3
-        derr = float((out - plain).abs().max())
-        dtol = BISECT_REL_TOL * float(bisect.window_torch(start, count, feat.abs()).max())
+        derr, dshare = probe_held("window", out, plain, start, count, feat)
+        check(same_bits(out, bisect.window(start, count, feat)),
+              "dense window differs between two runs")
         dms = [graph_ms(lambda: bisect.window(start, count, feat), 20) for _ in range(2)]
         fwd_ms = time_ms(lambda: blend.blend_forward(binning, inputs, WIDTH, HEIGHT), 5)
         dbound = bisect_bound_ms("window", start, count, feat)
+        # the bytes the kernel asks for (every window of every step, a window
+        # at a boundary between two tiles twice) and two yardsticks: the same
+        # steps with the longest runs first (the tail) and torch.sum over the
+        # whole matrix (the card's streaming rate)
+        _, n = bisect.window_bounds(start, count)
+        read_bytes = int(n.sum()) * bisect.CH * 25 * 4
+        unique_bytes = dbound[2] - start.numel() * (8 + 8 * 256 * 4)  # less start / count, out
+        order = torch.argsort(n, descending=True, stable=True)
+        s_lf, c_lf = start[order].contiguous(), count[order].contiguous()
+        check(same_bits(bisect.window(s_lf, c_lf, feat), out[order]),
+              "dense window, longest runs first: another result")
+        lf_ms = graph_ms(lambda: bisect.window(s_lf, c_lf, feat), 20)
+        sum_ms = graph_ms(lambda: torch.sum(feat), 20)
+        # the ring at other depths: each gives the kernel's result bit for
+        # bit; timed here and at the JAX shapes
+        jstart, jcount, jfeat = kb.inputs(dev)
+        variants = {}
+        for name, fn in window_variants(WINDOW_VARIANTS).items():
+            check(same_bits(fn(start, count, feat), out) and
+                  same_bits(fn(jstart, jcount, jfeat), bisect.window(jstart, jcount, jfeat)),
+                  f"window variant {name} gives another result than the kernel")
+            variants[name] = ([graph_ms(lambda: fn(start, count, feat), 20) for _ in range(2)],
+                              graph_ms(lambda: fn(jstart, jcount, jfeat), 100))
     log(f"phase 9 window at the dense view 0's run layout: {n_inst} instances ({feat.shape[1]} "
         f"columns), {start.numel()} tiles, max run {int(count.max())}; kernel ms (2 CUDA "
         f"graphs of 20 launches) {dms}, bound {dbound[0]:.4f} ms by {dbound[1]} ({dbound[2]} "
-        f"bytes); plain {dplain_ms:.3f} ms, max abs err {derr:.3e} (tolerance {dtol:.3e}); blend_fwd at the "
+        f"bytes, {unique_bytes} of them the windows' unique columns); the kernel asks for "
+        f"{read_bytes} bytes ({int(n.sum())} windows); longest "
+        f"runs first {lf_ms:.4f} ms; torch.sum over the matrix ({feat.numel() * 4} bytes) "
+        f"{sum_ms:.4f} ms; variants (dense ms in 2 graphs of 20, ms at the JAX shapes in a "
+        f"graph of 100) {variants}; plain {dplain_ms:.3f} ms, max abs err "
+        f"{derr:.3e} ({dshare:.3f} of the tolerance), run == rerun bitwise; blend_fwd at the "
         f"same binning {fwd_ms:.4f} ms (5 launches)")
-    check(derr <= dtol, f"dense window: error {derr} above {dtol}")
+    check(dshare <= 1.0, f"dense window: error {derr} at {dshare} of the tolerance")
     return dict(rows=rows, launches=launches, dense=dict(ms=dms, bound=dbound, fwd_ms=fwd_ms))
+
+
+def probes_only(workdir):
+    """``--probes``: phase 9 alone, on the dense scene it writes and bins as
+    phase 4 does (the budget from the measured demand of its 2 views)."""
+    from radegs_torch.ops.binning import default_instance_budget, round_budget
+    from radegs_torch.ops.rasterize import bin_prep
+    from radegs_torch.renderer import prepare
+
+    dpath = os.path.join(workdir, "dense.ply")
+    dcap = scene_ply(dpath, "dense")
+    state = load_scene(dpath, dcap, mesh_views())
+    with torch.no_grad():
+        need = max(int(bin_prep(prepare(state, cam, 0.1), WIDTH, HEIGHT,
+                                default_instance_budget(dcap), 8192,
+                                need_tile_gauss=False).n_instances)
+                   for cam, _, _ in mesh_views()[:2])
+    del state
+    torch.cuda.empty_cache()
+    bisect_probes(dict(dpath=dpath, dcap=dcap, dbudget=round_budget(need)))
 
 
 def profile_serving(workdir):
@@ -1858,6 +2086,11 @@ def main():
         with tempfile.TemporaryDirectory(dir=workdir) as tmp:
             profile_serving(tmp)
             profile_training(tmp)
+        return
+    if sys.argv[1:] == ["--probes"]:
+        with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+            probes_only(tmp)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
         return
     if sys.argv[1:] == ["--train100k"]:
         with tempfile.TemporaryDirectory(dir=workdir) as tmp:

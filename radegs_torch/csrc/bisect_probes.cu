@@ -1,8 +1,8 @@
 // The four bisect probes on Hopper (sm_90a): the smallest kernels that use
 // what later redesigns of the blend and integrate kernels need — an
 // asynchronous bulk copy of a feature window into shared memory completed
-// on a barrier, a loop of such copies over one tile's run, and a full-FP32
-// product inside a kernel.
+// on a barrier, a ring of such copies streamed over one tile's run, a
+// full-FP32 product inside a kernel, and a prefix sum as a warp scan.
 //
 // Replaces the TPU kernels of scripts/_kernel_bisect.py (D): k_aligned
 // (:43), k_window (:53), k_mm_highest (:72) and k_tri_mm (:86), all run
@@ -10,8 +10,8 @@
 // matrix feat (25, B) float32 in device memory, per-step start / count
 // (int32, scalar-prefetched there) and an (T, 8, 256) float32 output.
 //
-// What each computes for grid step t (one block per step here, 256
-// threads, thread j owns output column j of the 8 rows):
+// What each computes for grid step t (one block per step here; output
+// column j of the 8 rows belongs to thread j, or to a float4 store):
 //   aligned     the sum of feat[0:25, 0:128], broadcast;
 //   window      the sum over n = cdiv(start - start_al + count, 128) whole
 //               128-column windows from start_al = start // 128 * 128 (n = 0
@@ -22,40 +22,78 @@
 //   tri_mm      rows 0..7 of tri @ x, tri[r, c] = (r >= c), x[c, j] = f[0, c]:
 //               the inclusive prefix sum of f[0, 0..7], broadcast over 256.
 //
-// Staging: a 25 x 128 window is 25 row copies of 512 bytes with
-// cp.async.bulk (the Tensor Memory Accelerator's bulk path) into shared
-// memory, completed on an mbarrier that one thread arms with the expected
-// byte count — the TPU's make_async_copy + DMA semaphore. `window` keeps two
-// windows in flight (two buffers, two barriers). A bulk copy needs 16-byte
-// aligned addresses: the wrapper requires B % 128 == 0; `window` checks each
-// step's windows against the matrix itself and writes NaN for a step whose
-// windows leave it.
+// Staging: a 25 x 128 window goes into shared memory by the Tensor Memory
+// Accelerator, completed on an mbarrier armed with the expected byte count
+// — the TPU's make_async_copy + DMA semaphore. aligned and mm_highest issue
+// 25 row copies of 512 bytes (cp.async.bulk) from one thread; window issues
+// one 2D tensor-map copy (cp.async.bulk.tensor.2d, a 25 x 128 box). Both
+// need 16-byte aligned rows: the wrapper requires B % 128 == 0.
 //
-// What bounds it on an H100: bytes for aligned / window (each staged value
-// is read once and added once), a few microseconds of launch for the
-// rest at these sizes. The sums are reduced in a fixed order (per thread,
-// then warp shuffles, then the 8 warps in order): bit-identical from run to
-// run.
+// window: what bounds it on an H100 is bytes (each window value is read
+// once and added once). It streams a step's windows through a ring of
+// STAGES windows in dynamic shared memory, fed by one producer thread
+// (warp 8, lane 0): it arms a stage's `full` barrier and issues the
+// window's copy. At block start it issues min(n, STAGES) windows, so a
+// step of up to STAGES windows pays one copy latency. The eight consumer
+// warps arrive on a stage's `empty` barrier when they have read it; the
+// producer refills the stage once that barrier completes, with no
+// block-wide barrier per window. Each step's windows are checked against
+// the matrix on the card: a step whose windows leave it writes NaN (the
+// host never reads the bounds back). On an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py phase 9): 25 row copies per window, even issued by 25
+// lanes at once, took 4.14 us at the JAX shapes against 2.46 us with one
+// tensor-map copy; at the dense view 0's run layout (7.4M instances, 7,500
+// steps) S = 8 was the fastest ring of 2..16 windows (0.2781 ms, 86% of the
+// 0.2398 ms bytes bound; S = 4 0.2861, S = 3 0.2895; the two-buffer kernel
+// this ring replaced 80%). At 102.4 KB two blocks share an SM.
+//
+// tri_mm: its output needs the 8 values f[0, 0..7], 7 adds and 32 KB of
+// stores, so launch and store time bound it. Each warp loads the 8 values
+// with one plain 32-byte load (no bulk copy and no barrier: 32 bytes do not
+// pay for a copy's round trip), scans them with __shfl_up_sync in 3 steps
+// and stores the block's (8, 256) slab as float4. The TPU's product with a
+// lower-triangular matrix on the MXU is a shuffle scan here: at width 8 the
+// tensor cores bring nothing.
+//
+// The sums are reduced in a fixed order (per thread, then warp shuffles,
+// then the 8 warps in order; the scan in a fixed tree): bit-identical from
+// run to run.
 
 #include <cstdint>
 
+#include <cudaTypedefs.h>  // CUtensorMap, PFN_cuTensorMapEncodeTiled
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int CH = 128;        // columns of one window
 constexpr int ROWS = 25;       // feature rows
-constexpr int THREADS = 256;   // one block per grid step
+constexpr int THREADS = 256;   // one block per grid step (window: consumers)
 constexpr int OUT_ROWS = 8;
 constexpr int WIN = ROWS * CH; // floats of one window
 constexpr uint32_t WIN_BYTES = WIN * 4;
+constexpr int STAGES = 8;      // windows in the `window` ring
+constexpr int CONSUMER_WARPS = THREADS / 32;
+constexpr int WINDOW_THREADS = THREADS + 32;  // the consumers and one producer warp
+constexpr int RING_BYTES = STAGES * WIN_BYTES;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(arrivals)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
 }
 
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -71,35 +109,51 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// One row of a window: columns col0 .. col0 + 127 of feature row r into
+// dst + r * CH, completing on `bar`.
+__device__ __forceinline__ void copy_row(float* dst, const float* feat, long long B,
+                                         long long col0, int r, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(smem_addr(dst + r * CH)),
+      "l"(feat + r * B + col0), "r"(static_cast<uint32_t>(CH * 4)), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A whole window, columns col0 .. col0 + 127 of the 25 rows, into dst as
+// one 2D box of `map` (25 x 128 floats, row-major), completing on `bar`.
+__device__ __forceinline__ void copy_window(float* dst, const CUtensorMap* map, int col0,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3}], [%4];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col0), "r"(0), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // One thread: arm `bar` for a whole window and issue its 25 row copies
 // (columns col0 .. col0 + 127 of each row) into `dst`.
 __device__ __forceinline__ void stage_window(float* dst, const float* feat, long long B,
                                              long long col0, uint64_t* bar) {
-  const uint32_t b = smem_addr(bar);
-  // the buffer may have been read through the generic proxy before: order
-  // those reads before the async proxy's writes
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
-               "r"(WIN_BYTES)
-               : "memory");
-  for (int r = 0; r < ROWS; ++r) {
-    const float* src = feat + r * B + col0;
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-        "[%3];" ::"r"(smem_addr(dst + r * CH)),
-        "l"(src), "r"(static_cast<uint32_t>(CH * 4)), "r"(b)
-        : "memory");
-  }
+  mbar_expect(bar, WIN_BYTES);
+  for (int r = 0; r < ROWS; ++r) copy_row(dst, feat, B, col0, r, bar);
 }
 
-// The block's sum of one value per thread, in a fixed order; every thread
-// gets it.
+// The sum of one value per thread over threads 0..THREADS-1, in a fixed
+// order; every one of them gets it. They meet on hardware barrier BAR: 0 is
+// __syncthreads (a block of THREADS threads), another id only those threads.
+template <int BAR>
 __device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   const int warp = threadIdx.x >> 5;
   if ((threadIdx.x & 31) == 0) red[warp] = v;
-  __syncthreads();
+  if constexpr (BAR == 0) {
+    __syncthreads();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"n"(BAR), "n"(THREADS) : "memory");
+  }
   float s = 0.0f;
 #pragma unroll
   for (int w = 0; w < THREADS / 32; ++w) s += red[w];
@@ -118,27 +172,43 @@ __device__ __forceinline__ float window_part(const float* w) {
   return s;
 }
 
+// The same share as float4 loads: float4s j, j + 256, ... (4 partial sums)
+__device__ __forceinline__ float window_part4(const float* w) {
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int k = threadIdx.x; k < WIN / 4; k += THREADS) {
+    const float4 v = w4[k];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  return (s.x + s.y) + (s.z + s.w);
+}
+
 __global__ void __launch_bounds__(THREADS)
 aligned_kernel(const float* __restrict__ feat, long long B, float* __restrict__ out) {
   __shared__ __align__(128) float buf[WIN];
   __shared__ __align__(8) uint64_t bar;
   __shared__ float red[THREADS / 32];
   if (threadIdx.x == 0) {
-    mbar_init(&bar);
+    mbar_init(&bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   if (threadIdx.x == 0) stage_window(buf, feat, B, 0, &bar);
   mbar_wait(&bar, 0);
-  broadcast(out, blockIdx.x, block_sum(window_part(buf), red));
+  broadcast(out, blockIdx.x, block_sum<0>(window_part(buf), red));
 }
 
-__global__ void __launch_bounds__(THREADS)
-window_kernel(const int* __restrict__ start, const int* __restrict__ count,
-              const float* __restrict__ feat, long long B, float* __restrict__ out) {
-  __shared__ __align__(128) float buf[2][WIN];
-  __shared__ __align__(8) uint64_t bar[2];
-  __shared__ float red[THREADS / 32];
+// Threads 0..255 consume (thread j owns output column j), thread 256 produces.
+__global__ void __launch_bounds__(WINDOW_THREADS)
+window_kernel(const __grid_constant__ CUtensorMap map, const int* __restrict__ start,
+              const int* __restrict__ count, long long B, float* __restrict__ out) {
+  extern __shared__ __align__(128) float ring[];  // STAGES windows
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+  __shared__ float red[CONSUMER_WARPS];
   const int t = blockIdx.x;
   const long long s = start[t];
   const long long c = count[t];
@@ -146,40 +216,64 @@ window_kernel(const int* __restrict__ start, const int* __restrict__ count,
   const int n = c > 0 ? static_cast<int>((s - start_al + c + CH - 1) / CH) : 0;
   if (s < 0 || start_al + static_cast<long long>(n) * CH > B) {
     // windows outside the matrix: no copy, the step is NaN (the plain
-    // version's answer); the host never reads the bounds back
-    broadcast(out, t, __int_as_float(0x7fc00000));
+    // version's answer)
+    if (threadIdx.x < THREADS) broadcast(out, t, __int_as_float(0x7fc00000));
     return;
   }
   if (threadIdx.x == 0) {
-    mbar_init(&bar[0]);
-    mbar_init(&bar[1]);
+    for (int k = 0; k < STAGES; ++k) {
+      mbar_init(&full[k], 1);
+      mbar_init(&empty[k], CONSUMER_WARPS);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < 2 && k < n; ++k) stage_window(buf[k], feat, B, start_al + k * CH, &bar[k]);
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= THREADS) {
+    // the producer: window k goes to stage k % STAGES; from the second round
+    // on, a stage is refilled once the consumers have released its last window
+    if (lane != 0) return;
+    int st = 0;
+    uint32_t round = 0;  // parity of k / STAGES
+    for (int k = 0; k < n; ++k) {
+      if (k >= STAGES) mbar_wait(&empty[st], round ^ 1);
+      // the stage was read through the generic proxy: order those reads
+      // before the async proxy's writes
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_expect(&full[st], WIN_BYTES);
+      copy_window(ring + st * WIN, &map, static_cast<int>(start_al) + k * CH, &full[st]);
+      if (++st == STAGES) {
+        st = 0;
+        round ^= 1;
+      }
+    }
+    return;  // the consumers wait for every copy this thread issued
   }
   float acc = 0.0f;
-  for (int ci = 0; ci < n; ++ci) {
-    const int b = ci & 1;
-    mbar_wait(&bar[b], (ci >> 1) & 1);
-    acc += window_part(buf[b]);
-    __syncthreads();  // every thread is done with buf[b]
-    if (threadIdx.x == 0 && ci + 2 < n)
-      stage_window(buf[b], feat, B, start_al + (ci + 2) * CH, &bar[b]);
+  int st = 0;
+  uint32_t round = 0;
+  for (int k = 0; k < n; ++k) {
+    mbar_wait(&full[st], round);
+    acc += window_part4(ring + st * WIN);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+    if (++st == STAGES) {
+      st = 0;
+      round ^= 1;
+    }
   }
-  broadcast(out, t, block_sum(acc, red));
+  // barrier 1: the consumers only (the producer warp has left)
+  broadcast(out, t, block_sum<1>(acc, red));
 }
 
-// mm_highest (tri == false) and tri_mm (tri == true): thread j computes
-// column j of rows 0..7 as a 128-term FP32 FMA chain over the staged rows.
-template <bool TRI>
+// mm_highest: thread j computes column j of rows 0..7 as a 128-term FP32
+// FMA chain over the staged rows.
 __global__ void __launch_bounds__(THREADS)
 product_kernel(const float* __restrict__ feat, long long B, float* __restrict__ out) {
   __shared__ __align__(128) float buf[WIN];
   __shared__ __align__(8) uint64_t bar;
   if (threadIdx.x == 0) {
-    mbar_init(&bar);
+    mbar_init(&bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -189,16 +283,74 @@ product_kernel(const float* __restrict__ feat, long long B, float* __restrict__ 
 #pragma unroll
   for (int i = 0; i < OUT_ROWS; ++i) acc[i] = 0.0f;
   for (int c = 0; c < CH; ++c) {
-    const float w = buf[c];  // w[c, j] = x[c, j] = f[0, c]
+    const float w = buf[c];  // w[c, j] = f[0, c]
 #pragma unroll
-    for (int i = 0; i < OUT_ROWS; ++i) {
-      const float a = TRI ? (i >= c ? 1.0f : 0.0f) : buf[i * CH + c];
-      acc[i] = __fmaf_rn(a, w, acc[i]);
-    }
+    for (int i = 0; i < OUT_ROWS; ++i) acc[i] = __fmaf_rn(buf[i * CH + c], w, acc[i]);
   }
 #pragma unroll
   for (int i = 0; i < OUT_ROWS; ++i)
     out[(blockIdx.x * OUT_ROWS + i) * THREADS + threadIdx.x] = acc[i];
+}
+
+// tri_mm: every warp scans f[0, 0..7] itself (lanes 8..31 repeat lanes
+// 0..7), then the block stores its slab as 512 float4s; float4 q holds row
+// q / 64, which lane q / 64 of the scan carries.
+__global__ void __launch_bounds__(THREADS)
+tri_mm_kernel(const float* __restrict__ feat, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int r = lane & (OUT_ROWS - 1);
+  float v = feat[r];
+#pragma unroll
+  for (int o = 1; o < OUT_ROWS; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, v, o, OUT_ROWS);
+    if (r >= o) v += u;
+  }
+  float4* slab = reinterpret_cast<float4*>(out + blockIdx.x * OUT_ROWS * THREADS);
+  constexpr int PER_ROW = THREADS / 4;
+#pragma unroll
+  for (int q = threadIdx.x; q < OUT_ROWS * PER_ROW; q += THREADS) {
+    const float p = __shfl_sync(0xffffffffu, v, q / PER_ROW);
+    slab[q] = make_float4(p, p, p, p);
+  }
+}
+
+// The tensor map of feat (25, B) float32 for window copies: 25 x 128 boxes,
+// no swizzle. cuTensorMapEncodeTiled is a driver function, reached through
+// the runtime so that the library links against libcudart alone.
+cudaError_t window_map(CUtensorMap* map, const float* feat, int B) {
+  static PFN_cuTensorMapEncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(B), ROWS};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(B) * 4};  // bytes between rows
+  const cuuint32_t box[2] = {CH, ROWS};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(feat), dims,
+                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The window kernel's ring exceeds the default 48 KB of shared memory: allow
+// it once per device.
+cudaError_t allow_ring(void) {
+  static uint64_t allowed = 0;  // bit d: device d done
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (allowed >> dev & 1)) return cudaSuccess;
+  err = cudaFuncSetAttribute(window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             RING_BYTES);
+  if (err == cudaSuccess && dev < 64) allowed |= uint64_t{1} << dev;
+  return err;
 }
 
 }  // namespace
@@ -215,12 +367,17 @@ extern "C" int radegs_bisect_probes(const void* start, const void* count, const 
   auto* o = static_cast<float*>(out);
   switch (probe) {
     case 0: aligned_kernel<<<T, THREADS, 0, s>>>(f, B, o); break;
-    case 1:
-      window_kernel<<<T, THREADS, 0, s>>>(static_cast<const int*>(start),
-                                          static_cast<const int*>(count), f, B, o);
+    case 1: {
+      CUtensorMap map;
+      cudaError_t err = allow_ring();
+      if (err == cudaSuccess) err = window_map(&map, f, B);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      window_kernel<<<T, WINDOW_THREADS, RING_BYTES, s>>>(
+          map, static_cast<const int*>(start), static_cast<const int*>(count), B, o);
       break;
-    case 2: product_kernel<false><<<T, THREADS, 0, s>>>(f, B, o); break;
-    case 3: product_kernel<true><<<T, THREADS, 0, s>>>(f, B, o); break;
+    }
+    case 2: product_kernel<<<T, THREADS, 0, s>>>(f, B, o); break;
+    case 3: tri_mm_kernel<<<T, THREADS, 0, s>>>(f, o); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

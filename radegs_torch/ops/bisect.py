@@ -17,13 +17,19 @@ float32:
 - ``tri_mm``: rows 0..7 of ``tri @ x``, ``tri[r, c] = (r >= c)``,
   ``x[c, j] = f[0, c]``.
 
-The kernels stage 128-column windows with bulk asynchronous copies, which
-need B to be a multiple of 128 (the wrappers check it; ``pad_columns`` pads
-a matrix with zero columns). The ``window`` kernel checks each step's
-windows against the matrix on the card, so its wrapper never waits for it.
+The ``aligned``, ``window`` and ``mm_highest`` kernels stage 128-column
+windows with bulk asynchronous copies, which need B to be a multiple of 128
+(every wrapper checks it; ``pad_columns`` pads a matrix with zero columns).
+The ``window`` kernel checks each step's windows against the matrix on the
+card, so its wrapper never waits for it.
+A wrapper call resolves the C entry once and switches device only for
+tensors off the current one: the host call costs more than these kernels.
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 
@@ -97,6 +103,12 @@ PLAIN = {"aligned": aligned_torch, "window": window_torch, "mm_highest": mm_high
 # ------------------------------------------------------------- wrappers ----
 
 
+@functools.cache
+def _entry():
+    """The probes' C entry, built and resolved once."""
+    return build.entry("bisect_probes", 4, 3)
+
+
 def _run(probe: str, start, count, feat):
     if feat.device.type == "cpu":
         return PLAIN[probe](start, count, feat)
@@ -109,10 +121,12 @@ def _run(probe: str, start, count, feat):
         raise ValueError(f"feat must have a positive multiple of {CH} columns, got {B} "
                          "(pad_columns pads it)")
     out = torch.empty((T, *OUT_SHAPE), dtype=torch.float32, device=dev)
-    fn = build.entry("bisect_probes", 4, 3)
-    with torch.cuda.device(dev):
-        rc = fn(start.data_ptr(), count.data_ptr(), feat.data_ptr(), out.data_ptr(),
-                PROBES.index(probe), T, B, torch.cuda.current_stream(dev).cuda_stream)
+    # the device switch only where the tensors are not on the current device
+    switch = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+              else contextlib.nullcontext())
+    with switch:
+        rc = _entry()(start.data_ptr(), count.data_ptr(), feat.data_ptr(), out.data_ptr(),
+                      PROBES.index(probe), T, B, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bisect {probe} kernel launch failed with CUDA error {rc}")
     LAUNCHES[f"bisect_{probe}"] += 1

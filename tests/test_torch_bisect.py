@@ -1,13 +1,17 @@
 """The bisect probes (``radegs_torch/ops/bisect.py``) against the JAX
 package's four Pallas probe kernels (``scripts/_kernel_bisect.py``) run in
 interpret mode on the CPU, on the script's own start / count and two seeded
-sets (an empty step, unaligned starts, a window ending on the last column).
+sets (an empty step, unaligned starts, a window ending on the last column),
+on the long-run set (steps of 0, 1, 3, 4, 5 and 64 windows in a (25, 8192)
+matrix: the run lengths the ``window`` kernel's ring meets) and, for
+``tri_mm``, on two more seeded matrices.
 
 The script is loaded with ``ast``: its four module-level ``run(...)`` calls
 are dropped, and its grid spec is taken from the ``grid_spec = ...``
-statement of ``run``, so the kernels run with the script's own spec.
-Tolerance: abs 1e-5 x the sum of |terms| of each output (per step for the
-window sums; the largest row's |products| for ``mm_highest``).
+statement of ``run`` (evaluated with the grid's T set to the number of
+steps), so the kernels run with the script's own spec. Tolerance: abs 1e-5
+x the sum of |terms| of each output (per step for the window sums; the
+largest row's |products| for ``mm_highest``).
 """
 
 import ast
@@ -29,11 +33,26 @@ KERNELS = {"aligned": "k_aligned", "window": "k_window", "mm_highest": "k_mm_hig
            "tri_mm": "k_tri_mm"}
 SETS = [(kb.START, kb.COUNT), kb.seeded_set(1), kb.seeded_set(2)]
 REL = 1e-5
+# the long-run set: steps of 0, 1, 3, 4, 5 and 64 windows (a ring of 3 or 4
+# windows, one more, and many refills); the 64-window step starts unaligned
+# and ends on the last column
+LONG_B = 8192
+LONG_START = [1000, 300, 1100, 2100, 4000, 5]
+LONG_COUNT = [0, 50, 300, 400, 600, 8187]
+
+
+def long_inputs(device):
+    """The long-run set's operands on ``device`` (feat seeded as the script's)."""
+    feat = np.random.default_rng(0).normal(size=(25, LONG_B)).astype(np.float32)
+    return (torch.tensor(LONG_START, dtype=torch.int32, device=device),
+            torch.tensor(LONG_COUNT, dtype=torch.int32, device=device),
+            torch.from_numpy(feat).to(device))
 
 
 @pytest.fixture(scope="module")
 def script():
-    """The script's namespace (without its run(...) calls) and grid spec."""
+    """The script's namespace (without its run(...) calls) and the compiled
+    expression of its grid spec."""
     tree = ast.parse(SCRIPT.read_text(), filename=str(SCRIPT))
     tree.body = [n for n in tree.body
                  if not (isinstance(n, ast.Expr) and isinstance(n.value, ast.Call)
@@ -44,12 +63,14 @@ def script():
     assign = next(n for n in ast.walk(run) if isinstance(n, ast.Assign)
                   and getattr(n.targets[0], "id", None) == "grid_spec")
     expr = ast.fix_missing_locations(ast.Expression(assign.value))
-    return ns, eval(compile(expr, str(SCRIPT), "eval"), ns)
+    return ns, compile(expr, str(SCRIPT), "eval")
 
 
 def jax_probe(script, probe, start, count, feat):
-    ns, grid_spec = script
-    T = ns["T"]
+    """The script's kernel over a grid of len(start) steps, in interpret mode."""
+    ns, spec = script
+    T = len(start)
+    grid_spec = eval(spec, {**ns, "T": T})
     return np.asarray(pl.pallas_call(
         ns[KERNELS[probe]], out_shape=jax.ShapeDtypeStruct((T, 8, 256), jnp.float32),
         grid_spec=grid_spec, interpret=True)(jnp.asarray(start, jnp.int32),
@@ -86,6 +107,32 @@ def test_plain_probe_matches_pallas_interpret(script, probe, case):
     if probe == "window" and case > 0:
         assert 0 in count and any(s % 128 for s in start)
         assert any(s + c == kb.B for s, c in zip(start, count))
+
+
+@pytest.mark.parametrize("probe", list(KERNELS))
+def test_plain_probe_matches_pallas_interpret_on_long_runs(script, probe):
+    t_start, t_count, t_feat = long_inputs("cpu")
+    feat = t_feat.numpy()
+    want = jax_probe(script, probe, LONG_START, LONG_COUNT, feat)
+    got = bisect.PLAIN[probe](t_start, t_count, t_feat).numpy()
+    assert got.shape == want.shape == (6, 8, 256)
+    assert (np.abs(got - want) <= tolerance(probe, LONG_START, LONG_COUNT, feat)).all()
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_plain_tri_mm_matches_pallas_interpret_on_more_matrices(script, seed):
+    t_start, t_count, t_feat = kb.inputs("cpu", seed=seed)
+    feat = t_feat.numpy()
+    want = jax_probe(script, "tri_mm", kb.START, kb.COUNT, feat)
+    got = bisect.tri_mm_torch(t_start, t_count, t_feat).numpy()
+    assert (np.abs(got - want) <= tolerance("tri_mm", kb.START, kb.COUNT, feat)).all()
+
+
+def test_long_run_set_covers_the_ring():
+    start, count, _ = long_inputs("cpu")
+    start_al, n = bisect.window_bounds(start, count)
+    assert n.tolist() == [0, 1, 3, 4, 5, 64]
+    assert int((start_al + n * 128).max()) == LONG_B and int(start[-1]) % 128 != 0
 
 
 def test_seeded_sets_cover_the_edges():
@@ -151,3 +198,27 @@ def test_probe_kernels_match_plain_on_the_card():
             err, tol, out = kb.check(probe, s, c, f)
             assert err <= tol, (probe, err, tol)
             assert torch.equal(out, bisect.WRAPPERS[probe](s, c, f))
+
+
+@pytest.mark.cuda
+def test_ring_and_scan_kernels_match_plain_on_the_long_run_set():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    start, count, feat = long_inputs("cuda")
+    for probe in ("window", "tri_mm"):
+        out = bisect.WRAPPERS[probe](start, count, feat)
+        assert torch.equal(out, bisect.WRAPPERS[probe](start, count, feat))
+        tol = tolerance(probe, LONG_START, LONG_COUNT, feat.cpu().numpy())
+        err = (out - bisect.PLAIN[probe](start, count, feat)).abs().cpu().numpy()
+        assert (err <= tol).all(), (probe, float(err.max()))
+
+
+@pytest.mark.cuda
+def test_ring_kernel_nan_steps_are_bitwise_stable():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    start, count, feat = kb.inputs("cuda", *OUTSIDE)
+    out = bisect.window(start, count, feat)
+    again = bisect.window(start, count, feat)
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(torch.isnan(out), torch.isnan(bisect.window_torch(start, count, feat)))
