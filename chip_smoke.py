@@ -23,11 +23,20 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
    0.8, 1600x1200, max_per_tile 8192, ~8M instances per view), 2 views with
    the instance budget set from the measured demand. Launch counts are set
    to 0 before phase 3 and read after phase 4 (the serving path).
-5. Kernels alone at the 100k view 0: the forward and the backward kernel
-   timed in turns (G=1, G=2, G=2, G=1; 20 launches each), their plain
-   versions once, each held to the bounds of phase 2, and the least time the
-   card could take for their work (bytes and FP32 operations counted from
-   this view's inputs).
+5. Kernels alone. The forward kernel at the 100k view 0, timed in turns
+   (G=1, G=2, G=2, G=1; 20 launches each), its plain version once, held to
+   the bounds of phase 2, and the least time the card could take for its
+   work (bytes and FP32 operations counted from this view's inputs). The
+   backward against the exact reference renderer (``rasterize`` with the
+   kernels vs autograd through ``ops.reference.render_reference``, 256
+   Gaussians at 128x96: maps within ABS_TOL, gradients within 1e-4 x max
+   |reference|). Then the backward at three shapes: (a) the 100k view 0,
+   (b) the dense view 0 (early termination), (c) the training shape
+   (``create_from_points`` of the 100k scene: opacity 0.1, 3-NN scales,
+   view 0, no tile cut). At each, the checks of phase 2 and, alone in CUDA
+   graphs, the walk kernel (G=1, G=2; there and back), the segment sum,
+   the wrapper's sort and ``pack_aux``, the pair; the whole wrapper call;
+   the plain version once; the bound.
 6. The training path at full width: ``create_from_points`` on the 100k
    scene's centres (jittered, seeded random colours; the KNN at P = 100k),
    the 8 views rendered from the scene as ground truth, then ``train`` for
@@ -39,8 +48,7 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
    opacity reset once, Gaussians are left at the end, no instance overflow
    after the autotune settles, and the backward kernel ran once per
    iteration. Per-stage medians from CUDA
-   events, host ms per iteration, peak memory; the backward kernel alone at
-   the dense view 0.
+   events, host ms per iteration, peak memory.
 
 7. The mesh path at full width, all on the card (launch counts set to 0
    before 7b and read after 7e: the mesh path).
@@ -118,6 +126,13 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
    kernel built with other ring depths (``WINDOW_VARIANTS``; also timed at
    the JAX shapes).
 
+``python3 chip_smoke.py --bwd [CSRC]`` runs only phase 2, the reference
+check, the fault C1 witness (SSIM through plain ``F.conv2d`` with TF32
+allowed) and phase 5's backward shapes, beside the backward kernel
+rebuilt from copies of its source with other constants (``BWD_VARIANTS``,
+held to the plain version too) or a piece taken out (``BWD_PROBES``,
+timed only) and, when one is named, the backward pair built from another
+checkout's ``radegs_torch/csrc`` (whose C entry takes ``rank``).
 ``python3 chip_smoke.py --profile`` instead runs the setup and a
 torch.profiler pass over both scenes' serving and over 5 training
 iterations of the 100k scene (device time by operation, busy share).
@@ -198,6 +213,25 @@ TETRA_N = 50_000
 WITNESS_CAPACITY = 1 << 18  # its default render budget (2^21) covers the demand
 WITNESS_TSDF_RES = 384  # the witness TSDF's max_resolution (7b: 768)
 BWD_REL_TOL = 1e-4  # of max |plain| per gradient field
+# backward pairs built from copies of csrc/blend_bwd.cu with other constants,
+# checked and timed beside it at each backward shape by --bwd: pixels per thread,
+# instances per round, ring depth, the register cap (tiles resident per SM),
+# the segment sum's rows in flight
+BWD_VARIANTS = {"K=2": {"K": 2}, "RB=16": {"RB": 16}, "STAGES=2": {"STAGES": 2},
+                "MIN_TILES=6": {"MIN_TILES": 6}, "ROW=25": {"ROW": 25},
+                "SEG_BATCH=8": {"SEG_BATCH": 8}}
+# copies of csrc/blend_bwd.cu with one piece taken out, timed beside it by --bwd (not
+# checked: their gradients are wrong by design): the warp reduction replaced
+# by a lane's own sum, and the walk cut to its gates (nothing blends)
+BWD_PROBES = {
+    "no reduction": ("const float s = warp_reduce_scatter(acc, lane);",
+                     "float s = 0.0f;\n      for (int c = 0; c < N_GRAD; ++c) s += acc[c];"),
+    "gates only": ("if (wb == 0) continue;", "if (wb != 0x7fffffffu) continue;"),
+}
+# the exact reference renderer's scene (O(H W P) memory) and its tolerance:
+# per map abs ABS_TOL, per gradient field REF_REL_TOL x max |reference|
+REF_P, REF_W, REF_H = 256, 128, 96
+REF_REL_TOL = 1e-4
 TRAIN_ITERS = 100
 DENSIFY_LOG = (1, 39, 40, 41, 59, 60, 61, 79, 80, 81, TRAIN_ITERS)
 DEVICE = "cuda"
@@ -429,7 +463,328 @@ def check_backward(binning, inputs, fwd, cot, W, H, label):
         "|plain|: " + ", ".join(f"{k} {a:.3e} / {r:.3e}" for k, (a, r) in errs.items()))
     worst = max(r for _, r in errs.values())
     check(worst <= BWD_REL_TOL, f"{label}: backward kernel vs plain rel err {worst}")
-    return max(a for a, _ in errs.values()), worst
+    return max(a for a, _ in errs.values()), worst, plain
+
+
+def bwd_libraries(variants, probes, other=None):
+    """Backward pairs (C entry ``radegs_blend_bwd``) built from copies of
+    csrc/blend_bwd.cu: with other constants (``variants``: {name: {constant:
+    value}}), with a piece of text replaced (``probes``: {name: (old,
+    new)}), and, when ``other`` names the csrc directory of another
+    checkout, from its blend_bwd.cu as ``other``; all at once
+    (``build.build_copies``, into build/chip_smoke/). Prints each build's
+    ptxas register and spill lines. Returns {name: (function, checked)}:
+    probes are not checked against the plain version."""
+    import ctypes
+
+    from radegs_torch.native import build
+
+    src = (build.CSRC / "blend_bwd.cu").read_text()
+    copies = {name: (build.with_constants(src, consts), build.CSRC)
+              for name, consts in variants.items()}
+    for name, (old, new) in probes.items():
+        check(old in src, f"backward probe {name}: no {old!r} in blend_bwd.cu")
+        copies[name] = src.replace(old, new), build.CSRC
+    if other:
+        text = open(os.path.join(other, "blend_bwd.cu")).read()
+        check("const void* rank," in text, f"{other}/blend_bwd.cu: its C entry takes no rank")
+        copies["other"] = text, other
+    libs = {}
+    for name, (lib, out) in build.build_copies(
+            copies, os.path.join(ROOT, "build", "chip_smoke", "bwd")).items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas blend_bwd[{name}]: {line.strip()}")
+        fn = lib.radegs_blend_bwd
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        libs[name] = (fn, name not in probes)
+    return libs
+
+
+class BwdCall:
+    """The inputs and outputs of one call of a backward pair, built as
+    ``blend.blend_backward`` builds them, to launch the pair, the walk alone
+    (num_gauss 0) or the segment sum alone (num_tiles 0) through any
+    library's ``radegs_blend_bwd``."""
+
+    def __init__(self, binning, inputs, fwd, cot, W, H):
+        from radegs_torch.ops import blend
+
+        self.feat, self.T, self.tiles_x = blend._kernel_inputs(binning, inputs, W, H, 2)
+        self.P, self.N = self.feat.shape[0], binning.gauss_id.numel()
+        self.aux = blend.pack_aux(fwd, cot)
+        self.med_pos = fwd["med_pos"].to(torch.int32).contiguous()
+        self.rank, self.seg = blend.instance_segments(binning.gauss_id, self.P)
+        self.rows = torch.empty((self.N, 32), device=DEVICE)
+        self.grad = torch.empty((self.P, blend.N_GRAD), device=DEVICE)
+        self.binning, self.W, self.H = binning, W, H
+
+    def __call__(self, fn, g=2, walk=True, segment=True):
+        b = self.binning
+        rc = fn(self.feat.data_ptr(), b.gauss_id.data_ptr(), b.tile_start.data_ptr(),
+                b.tile_count.data_ptr(), self.aux.data_ptr(), self.med_pos.data_ptr(),
+                self.rank.data_ptr(), self.seg.data_ptr(), self.rows.data_ptr(),
+                self.grad.data_ptr(), self.T if walk else 0, self.tiles_x, self.N,
+                self.P if segment else 0, self.W, self.H, g,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"backward pair launch failed with CUDA error {rc}")
+        return self.grad
+
+
+def backward_shape(label, binning, inputs, fwd, cot, W, H, work, libs, reps):
+    """One backward shape: ``check_backward`` (G=1 == G=2, run == rerun,
+    each field within BWD_REL_TOL of the plain version), every checked
+    library of ``libs`` (``bwd_libraries``) held to the plain version too;
+    then, each in a CUDA graph of ``reps`` calls (device time alone), the
+    walk kernel of the tree at G=1 and G=2 and of every library at G=2 in
+    turns (there and back), the segment sum alone (the tree's and another
+    checkout's), the wrapper's ``instance_segments`` and ``pack_aux``, and
+    the pair (walk + segment sum); the whole wrapper call by CUDA events
+    around ``reps`` calls from the host (G=1, G=2, another checkout's; there
+    and back); the plain version once; the bound of ``backward_bound_ms`` for
+    the pairs ``work`` counts."""
+    from radegs_torch.native import build
+    from radegs_torch.ops import blend
+
+    bwd_abs, bwd_rel, plain = check_backward(binning, inputs, fwd, cot, W, H, label)
+    call = BwdCall(binning, inputs, fwd, cot, W, H)
+    tree = build.entry("blend_bwd", 10, 7)
+    lib_rel = {}
+    for name, (fn, checked) in libs.items():
+        if checked:
+            got = blend.grads_from_rows(call(fn).clone())
+            lib_rel[name] = max(r for _, r in compare_grads(got, plain).values())
+            check(lib_rel[name] <= BWD_REL_TOL, f"{label}: backward {name} vs plain rel err "
+                  f"{lib_rel[name]}")
+    order = [("G=1", tree, 1), ("G=2", tree, 2)] + [
+        (name, fn, 2) for name, (fn, _) in libs.items()]
+    walk = {}
+    for rnd in range(2):
+        for name, fn, g in (order if rnd == 0 else order[::-1]):
+            walk.setdefault(name, []).append(graph_ms(
+                lambda fn=fn, g=g: call(fn, g, segment=False), reps))
+    sums = {"tree": tree}
+    if "other" in libs:
+        sums["other"] = libs["other"][0]
+    segment = {name: graph_ms(lambda fn=fn: call(fn, 2, walk=False), reps)
+               for name, fn in sums.items()}
+    sort_ms = graph_ms(lambda: blend.instance_segments(binning.gauss_id, call.P), reps)
+    pack_ms = graph_ms(lambda: blend.pack_aux(fwd, cot), reps)
+    pair = {g: graph_ms(lambda g=g: call(tree, g), reps) for g in (1, 2)}
+    calls = {g: lambda g=g: blend.blend_backward(binning, inputs, fwd, cot, W, H,
+                                                 tiles_per_block=g) for g in (1, 2)}
+    if "other" in sums:
+        calls["other"] = other_wrapper(sums["other"], binning, inputs, fwd, cot, W, H)
+    wrapper = {}
+    for g in list(calls) + list(calls)[::-1]:
+        wrapper.setdefault(g, []).append(time_ms(calls[g], reps))
+    plain_ms = time_ms(lambda: blend.blend_backward_torch(binning.tile_gauss, inputs, fwd, cot,
+                                                          W, H), 1)
+    bound, bound_by, n_bytes, ops = backward_bound_ms(binning, inputs, work)
+    log(f"{label} backward pieces ({binning.gauss_id.numel()} instances, {int(work['n_eval'])} "
+        f"pairs walked, {int(work['n_incl'])} blended; device ms alone in CUDA graphs of "
+        f"{reps}): walk kernel " + ", ".join(f"{k} {v}" for k, v in walk.items())
+        + "; segment sum " + ", ".join(f"{k} {v:.4f}" for k, v in segment.items())
+        + f"; instance_segments {sort_ms:.4f}; pack_aux {pack_ms:.4f}; pair G=1 {pair[1]:.4f}, "
+        f"G=2 {pair[2]:.4f}; whole wrapper (host-issued, there and back) "
+        + ", ".join(f"{k} {v}" for k, v in wrapper.items())
+        + f"; plain {plain_ms:.3f}; bound {bound:.4f} ms by {bound_by} ({n_bytes} bytes, {ops} "
+        f"FP32 operations): pair G=2 at {100 * bound / pair[2]:.1f}% of it; checked "
+        "libraries vs plain rel " + ", ".join(f"{k} {v:.2e}" for k, v in lib_rel.items()))
+    return dict(abs=bwd_abs, rel=max([bwd_rel] + list(lib_rel.values())), walk=walk,
+                segment=segment, sort_ms=sort_ms, pack_ms=pack_ms, pair=pair, wrapper=wrapper,
+                plain_ms=plain_ms, bound=bound, bound_by=bound_by,
+                n_inst=binning.gauss_id.numel())
+
+
+def other_wrapper(fn, binning, inputs, fwd, cot, W, H):
+    """A call of another checkout's whole backward wrapper at G=2 around its
+    pair ``fn``: this checkout's ``blend.blend_backward`` with the entry
+    swapped."""
+    from radegs_torch.ops import blend
+
+    def swapped():
+        entry = blend.build.entry
+        blend.build.entry = lambda *a: fn
+        try:
+            return blend.blend_backward(binning, inputs, fwd, cot, W, H, tiles_per_block=2)
+        finally:
+            blend.build.entry = entry
+
+    return swapped
+
+
+def view0_binning(state, cam, max_per_tile, capacity):
+    """The preprocess, blend inputs and binning (with ``tile_gauss``) of one
+    view, the instance budget set from the view's measured demand."""
+    from radegs_torch.ops.binning import default_instance_budget, round_budget
+    from radegs_torch.ops.rasterize import bin_prep, blend_inputs
+    from radegs_torch.renderer import prepare
+
+    prep = prepare(state, cam, 0.1)
+    need = int(bin_prep(prep, WIDTH, HEIGHT, default_instance_budget(capacity), max_per_tile,
+                        need_tile_gauss=False).n_instances)
+    binning = bin_prep(prep, WIDTH, HEIGHT, round_budget(need), max_per_tile,
+                       need_tile_gauss=True)
+    check(int(binning.n_overflow) == 0 and int(binning.tile_overflow) == 0,
+          f"view 0 binning dropped work: {int(binning.n_overflow)}, "
+          f"{int(binning.tile_overflow)}")
+    return blend_inputs(prep), binning
+
+
+def backward_shapes(path, cap, dpath, dcap, cams, libs):
+    """The backward at its three shapes, each through ``backward_shape``
+    with seeded random cotangents and the plain forward's pair counts: (a)
+    the 100k view 0 (``max_per_tile`` 512, as served), (b) the dense view 0
+    (8192, early termination), (c) the training shape: ``create_from_points``
+    of the 100k scene's centres (opacity 0.1, 3-NN scales; ``training_scene``),
+    view 0, no tile cut. Returns {shape: results}."""
+    from radegs_torch.models import gaussian_model as gm
+    from radegs_torch.ops import blend
+    from radegs_torch.ops.binning import MAX_PER_TILE_CAP, default_instance_budget
+
+    dev = torch.device(DEVICE)
+    out = {}
+    for shape in ("a", "b", "c"):
+        if shape == "a":
+            state = gm.update_3d_filter(
+                gm.load_gaussian_ply(path, sh_degree=3, capacity=cap, device=dev), cams)
+            max_per_tile, capacity, label, reps = 512, cap, "(a) 100k view 0", 20
+        elif shape == "b":
+            state = gm.update_3d_filter(
+                gm.load_gaussian_ply(dpath, sh_degree=3, capacity=dcap, device=dev), cams)
+            max_per_tile, capacity, label, reps = 8192, dcap, "(b) dense view 0", 10
+        else:
+            _, state, _ = training_scene(path, cap, cams, default_instance_budget(cap))
+            max_per_tile, capacity, label = MAX_PER_TILE_CAP, state.capacity, "(c) training view 0"
+            reps = 10
+        with torch.no_grad():
+            inputs, binning = view0_binning(state, cams[0], max_per_tile, capacity)
+            del state
+            work = blend.blend_forward_torch(binning.tile_gauss, inputs, WIDTH, HEIGHT,
+                                             count_work=True)
+            fwd = blend.blend_forward(binning, inputs, WIDTH, HEIGHT)
+            cot = random_cotangents(fwd, {"a": 12, "b": 14, "c": 15}[shape])
+            out[shape] = backward_shape(f"phase 5 {label}", binning, inputs, fwd, cot, WIDTH,
+                                        HEIGHT, work, libs, reps)
+            out[shape]["max_tile"] = int(binning.max_tile_count)
+        del inputs, binning, work, fwd, cot
+        torch.cuda.empty_cache()
+    return out
+
+
+def reference_check():
+    """The backward kernel against the exact reference renderer on the card:
+    ``rasterize`` (the blend kernels, G=2) of a seeded REF_P-Gaussian scene
+    at REF_W x REF_H, a seeded weighted sum of its seven maps, the gradients
+    w.r.t. the nine blend inputs against ``torch.autograd`` through
+    ``ops.reference.render_reference`` (no code shared with the kernels or
+    their plain versions). Maps within ABS_TOL, gradients within
+    REF_REL_TOL x max |reference| per field. Returns the max relative error."""
+    from radegs_torch.core.camera import Camera
+    from radegs_torch.core.projection import preprocess_gaussians
+    from radegs_torch.ops.rasterize import rasterize
+    from radegs_torch.ops.reference import render_reference
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(9)
+    P = REF_P
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    q = rng.normal(size=(P, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    cam = Camera.look_at([0.3, -0.2, -3.5], [0, 0, 0], [0, 1, 0], 0.9, 0.9, REF_W, REF_H,
+                         device=dev)
+    prep = preprocess_gaussians(t(rng.normal(size=(P, 3)) * 0.6),
+                                t(np.exp(rng.normal(size=(P, 3)) * 0.4) * 0.08), t(q),
+                                t(rng.uniform(0.3, 0.99, size=(P, 1))),
+                                t(rng.normal(size=(P, 16, 3)) * 0.3), sh_degree=3, camera=cam)
+    fields = ["xy", "conic", "opacity", "rgb", "view_point", "camera_plane", "ray_plane",
+              "normal", "ts"]
+    names = {"render": "render", "mask": "alpha", "expected_depth": "expected_depth",
+             "median_depth": "median_depth", "expected_coord": "expected_coord",
+             "median_coord": "median_coord", "normal": "normal"}
+    bg = t([0.3, 0.2, 0.1])
+    leaves = {f: getattr(prep, f).detach().clone().requires_grad_(True) for f in fields}
+    out = rasterize(prep.replace(**leaves), cam, bg, max_per_tile=1024,
+                    instance_budget=1 << 16, tiles_per_block=2)
+    check(int(out["binning"].n_overflow) == 0 and int(out["binning"].tile_overflow) == 0,
+          "reference scene binning dropped work")
+    weights = {k: t(rng.normal(size=tuple(out[k].shape))) for k in names}
+    sum((weights[k] * out[k]).sum() for k in names).backward()
+    ref_leaves = {f: getattr(prep, f).detach().clone().requires_grad_(True) for f in fields}
+    ref = render_reference(prep.replace(**ref_leaves), REF_W, REF_H, cam.focal_x, cam.focal_y,
+                           bg)
+    map_err = max((out[k] - ref[r]).abs().max().item() for k, r in names.items())
+    sum((weights[k] * ref[r]).sum() for k, r in names.items()).backward()
+    rel = {f: ((leaves[f].grad - ref_leaves[f].grad).abs().max()
+               / ref_leaves[f].grad.abs().max().clamp_min(1e-30)).item() for f in fields}
+    ended = int((ref["t_final"] < 1e-3).sum())
+    log(f"phase 5 reference check ({P} Gaussians, {REF_W}x{REF_H}, "
+        f"{int(out['binning'].n_instances)} instances, {ended} pixels ended): maps max abs err "
+        f"{map_err:.3e}; gradients vs autograd through render_reference, rel to max |ref|: "
+        + ", ".join(f"{f} {v:.2e}" for f, v in rel.items()))
+    check(map_err <= ABS_TOL, f"kernel maps vs the reference renderer: {map_err}")
+    check(max(rel.values()) <= REF_REL_TOL, f"kernel gradients vs the reference: {rel}")
+    return max(rel.values())
+
+
+def tf32_witness():
+    """What fault C1 was worth: the SSIM of a seeded 1600x1200 image pair
+    with its input gradient, and the appearance transform of that image with
+    its parameters' gradients, each through the port's pinned float32
+    convolutions and through plain ``F.conv2d`` with cuDNN's TF32 allowed,
+    against float64 on the card. Logs the errors."""
+    import torch.nn.functional as F
+
+    from radegs_torch.models import appearance
+    from radegs_torch.ops import ssim as ssim_mod
+    from radegs_torch.ops.conv import conv2d_fp32 as conv2d_fp32_ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    a = torch.rand((3, HEIGHT, WIDTH), generator=gen, device=DEVICE)
+    b = (a + 0.1 * torch.randn(a.shape, generator=gen, device=DEVICE)).clamp(0, 1)
+    net, app = appearance.init_appearance(gen)
+
+    def plain_conv(x, weight, bias=None, padding=(0, 0), groups=1):
+        return F.conv2d(x, weight, bias, padding=padding, groups=groups)
+
+    def run(dtype):
+        x = a.to(dtype).clone().requires_grad_(True)
+        s = ssim_mod.ssim(x, b.to(dtype))
+        s.backward()
+        params = {"net": {k: v.to(dtype).clone().requires_grad_(True)
+                          for k, v in app["net"].items()},
+                  "embeddings": app["embeddings"].to(dtype)}
+        out, _ = appearance.appearance_transform(net, params, a.to(dtype), 3)
+        out.square().sum().backward()
+        return s.item(), x.grad, out, torch.cat([v.grad.flatten()
+                                                 for v in params["net"].values()])
+
+    def rel(u, v):
+        return ((u.double() - v).abs().max() / v.abs().max()).item()
+
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        s64, g64, o64, p64 = run(torch.float64)
+        errs = {}
+        for name in ("pinned float32", "F.conv2d, TF32 allowed"):
+            if name != "pinned float32":
+                ssim_mod.conv2d_fp32 = appearance.conv2d_fp32 = plain_conv
+            try:
+                s32, g32, o32, p32 = run(torch.float32)
+            finally:
+                ssim_mod.conv2d_fp32 = appearance.conv2d_fp32 = conv2d_fp32_ref
+            errs[name] = (abs(s32 - s64), rel(g32, g64), rel(o32, o64), rel(p32, p64))
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    log("fault C1 witness vs float64 on the card, 1600x1200 (SSIM abs err, its input "
+        "gradient, appearance output, its parameters' gradients, rel to max): "
+        + ", ".join(f"{k} " + " / ".join(f"{e:.3e}" for e in v) for k, v in errs.items()))
 
 
 # ------------------------------------------------------------- phases ----
@@ -442,7 +797,8 @@ def setup():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}"
+        f" ({smi})")
     t0 = time.perf_counter()
     took = build.build()
     log(f"build: {time.perf_counter() - t0:.2f} s wall, per source "
@@ -491,8 +847,8 @@ def parity_scene(W=256, H=256, target=(0, 0, 0)):
         f"med_pos flips {flips:.3e}, med_t/med_coord err where med_pos agrees {med_err:.3e}")
     check(err <= ABS_TOL and med_err <= ABS_TOL, f"kernel vs plain error {err}, {med_err}")
     check(flips <= MED_POS_TOL, f"med_pos flips {flips}")
-    bwd_abs, bwd_rel = check_backward(binning, inputs, k1, random_cotangents(k1, 11), W, H,
-                                      f"phase 2 {W}x{H}")
+    bwd_abs, bwd_rel, _ = check_backward(binning, inputs, k1, random_cotangents(k1, 11), W, H,
+                                         f"phase 2 {W}x{H}")
     return max(err, med_err), bwd_abs, bwd_rel
 
 
@@ -555,7 +911,8 @@ def report(label, rows, budget, launches, peak):
 
 def full_scale(workdir):
     """Phases 3 and 4 (the serving path at full width, then converged scale)
-    and phase 5 (the kernels alone at the 100k view 0)."""
+    and phase 5 (the forward kernel alone at the 100k view 0; the backward
+    against the reference renderer, then at its three shapes)."""
     from radegs_torch.models import gaussian_model as gm
     from radegs_torch.ops import blend
     from radegs_torch.ops.binning import default_instance_budget, round_budget
@@ -647,27 +1004,14 @@ def full_scale(workdir):
             f"{timing[1]}, G=2 {timing[2]}; plain {plain_ms:.3f}; bound {bound:.4f} ms by "
             f"{bound_by} ({n_bytes} bytes, {ops} FP32 operations)")
 
-        cot = random_cotangents(k2, 12)
-        bwd_abs, bwd_rel = check_backward(binning, inputs, k2, cot, WIDTH, HEIGHT,
-                                          "phase 5 100k view 0")
-        btiming = {}
-        for rnd in range(2):  # turns: G=1, G=2, G=2, G=1
-            for g in ((1, 2) if rnd == 0 else (2, 1)):
-                ms = time_ms(lambda g=g: blend.blend_backward(binning, inputs, k2, cot, WIDTH,
-                                                              HEIGHT, tiles_per_block=g), 20)
-                btiming.setdefault(g, []).append(ms)
-        bplain_ms = time_ms(lambda: blend.blend_backward_torch(binning.tile_gauss, inputs, k2,
-                                                               cot, WIDTH, HEIGHT), 1)
-        bbound, bbound_by, bn_bytes, bops = backward_bound_ms(binning, inputs, plain)
-    log(f"phase 5 backward kernel alone at 100k view 0 (ms, turns G1,G2,G2,G1): G=1 "
-        f"{btiming[1]}, G=2 {btiming[2]}; plain {bplain_ms:.3f}; bound {bbound:.4f} ms by "
-        f"{bbound_by} ({bn_bytes} bytes, {bops} FP32 operations; {binning.gauss_id.numel()} "
-        f"instances)")
+    # ---- the backward at its three shapes (launches here are not counted) ----
+    del state, prep, binning, inputs, plain, k1, k2
+    torch.cuda.empty_cache()
+    ref_rel = reference_check()
     results.update(launches=launches, timing=timing, plain_ms=plain_ms, bound=bound,
                    bound_by=bound_by, err=max(err, med_err), path=path, dpath=dpath, cap=cap,
-                   dcap=dcap, cams=cams, budget=budget, dbudget=dbudget, btiming=btiming,
-                   bplain_ms=bplain_ms, bbound=bbound, bbound_by=bbound_by, bwd_abs=bwd_abs,
-                   bwd_rel=bwd_rel)
+                   dcap=dcap, cams=cams, budget=budget, dbudget=dbudget, ref_rel=ref_rel,
+                   bwd=backward_shapes(path, cap, dpath, dcap, cams, {}))
     return results
 
 
@@ -799,14 +1143,13 @@ def train_100k(path, cap, cams, budget):
 
 def training(res):
     """Phase 6: the training path at full width on the 100k scene, then
-    train steps at converged scale, and the backward kernel alone there."""
+    train steps at converged scale (the backward alone there is phase 5's
+    shape (b))."""
     from dataclasses import replace
 
     from radegs_torch.models import gaussian_model as gm
     from radegs_torch.ops import blend
     from radegs_torch.ops.binning import round_budget
-    from radegs_torch.ops.rasterize import bin_prep, blend_inputs
-    from radegs_torch.renderer import prepare
     from radegs_torch.train.config import ModelConfig, OptimizationConfig, PipelineConfig
     from radegs_torch.train.loop import TrainState, make_train_step
 
@@ -851,21 +1194,7 @@ def training(res):
     check(all(v > 0 for v in launches.values()), f"a kernel never ran on the training path: "
           f"{launches}")
 
-    # ---- the backward kernel alone at the dense view 0 (not counted) ----
-    with torch.no_grad():
-        prep = prepare(dts.gaussians, cams[0], 0.1)
-        binning = bin_prep(prep, WIDTH, HEIGHT, dbudget, 8192, need_tile_gauss=False)
-        inputs = blend_inputs(prep)
-        fwd = blend.blend_forward(binning, inputs, WIDTH, HEIGHT)
-        cot = random_cotangents(fwd, 13)
-        dms = {}
-        for g in (2, 1, 1, 2):
-            dms.setdefault(g, []).append(time_ms(
-                lambda g=g: blend.blend_backward(binning, inputs, fwd, cot, WIDTH, HEIGHT,
-                                                 tiles_per_block=g), 3))
-    log(f"phase 6 backward kernel alone at the dense view 0 ({binning.gauss_id.numel()} "
-        f"instances; ms, turns G2,G1,G1,G2): G=1 {dms[1]}, G=2 {dms[2]}")
-    results.update(launches=launches, dense_rows=drows, dense_peak=dpeak, dense_bwd_ms=dms)
+    results.update(launches=launches, dense_rows=drows, dense_peak=dpeak)
     return results
 
 
@@ -1735,26 +2064,12 @@ def window_variants(variants):
     src = (build.CSRC / "bisect_probes.cu").read_text()
     if "constexpr int STAGES" not in src:
         return {}
-    jobs = {}
-    for name, consts in variants.items():
-        text = src
-        for const, value in consts.items():
-            pat = re.compile(rf"(constexpr \w+ {const} = )[^;]+;")
-            check(pat.search(text) is not None, f"no constant {const} in bisect_probes.cu")
-            text = pat.sub(rf"\g<1>{value};", text)
-        d = os.path.join(ROOT, "build", "chip_smoke", re.sub(r"\W+", "_", name))
-        os.makedirs(d, exist_ok=True)
-        cu, so = os.path.join(d, "bisect_probes.cu"), os.path.join(d, "bisect_probes.so")
-        with open(cu, "w") as f:
-            f.write(text)
-        jobs[name] = so, subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", so, cu],
-                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                          text=True)
+    copies = {name: (build.with_constants(src, consts), build.CSRC)
+              for name, consts in variants.items()}
     kernels = {}
-    for name, (so, proc) in jobs.items():
-        log_text = proc.communicate()[0]
-        check(proc.returncode == 0, f"window variant {name} failed to build:\n{log_text}")
-        fn = ctypes.CDLL(so).radegs_bisect_probes
+    for name, (lib, _) in build.build_copies(
+            copies, os.path.join(ROOT, "build", "chip_smoke", "window")).items():
+        fn = lib.radegs_bisect_probes
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
@@ -2070,6 +2385,22 @@ def train_ab(workdir):
     train_100k(path, cap, cams, budget)
 
 
+def backward_only(workdir, other):
+    """``--bwd [CSRC]``: phase 2, the reference check, the fault C1 witness
+    and phase 5's backward at its three shapes, beside BWD_VARIANTS,
+    BWD_PROBES and, given the csrc directory of another checkout, its
+    backward pair."""
+    parity = [parity_scene(), parity_scene(250, 190, (1.6, 0, 0))]
+    reference_check()
+    tf32_witness()
+    libs = bwd_libraries(BWD_VARIANTS, BWD_PROBES, other)
+    cams = orbit_cameras(N_VIEWS, torch.device(DEVICE))
+    path, dpath = os.path.join(workdir, "scene100k.ply"), os.path.join(workdir, "dense.ply")
+    cap, dcap = scene_ply(path, "100k"), scene_ply(dpath, "dense")
+    backward_shapes(path, cap, dpath, dcap, cams, libs)
+    log(f"backward vs plain, max rel err over phase 2: {max(p[2] for p in parity):.3e}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -2092,6 +2423,11 @@ def main():
             probes_only(tmp)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return
+    if sys.argv[1:2] == ["--bwd"]:
+        with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+            backward_only(tmp, sys.argv[2] if len(sys.argv) > 2 else None)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return
     if sys.argv[1:] == ["--train100k"]:
         with tempfile.TemporaryDirectory(dir=workdir) as tmp:
             train_ab(tmp)
@@ -2099,6 +2435,7 @@ def main():
         return
     parity = [parity_scene(), parity_scene(250, 190, (1.6, 0, 0))]
     err2 = max(p[0] for p in parity)
+    tf32_witness()
     with tempfile.TemporaryDirectory(dir=workdir) as tmp:
         res = full_scale(tmp)
         tr = training(res)
@@ -2116,15 +2453,18 @@ def main():
             "ms": float(np.median(res["timing"][g])), "plain_ms": res["plain_ms"],
             "bound_ms": res["bound"], "bound_by": res["bound_by"], "library_ms": None,
         })
+    bwd = res["bwd"]
     for g, replaces in ((1, "radegs_tpu/ops/pallas_blend.py:600"),
                         (2, "radegs_tpu/ops/pallas_blend_mt.py:357")):
-        kernels.append({
+        kernels.append({  # at the 100k view 0: ms per wrapper call, pair_ms the pair alone
             "name": f"blend_bwd[G={g}]", "route": "cuda",
             "source": "radegs_torch/csrc/blend_bwd.cu", "replaces": replaces,
             "launches": tr["launches"][f"blend_bwd[G={g}]"],
-            "max_abs_err": max([p[1] for p in parity] + [res["bwd_abs"]]),
-            "ms": float(np.median(res["btiming"][g])), "plain_ms": res["bplain_ms"],
-            "bound_ms": res["bbound"], "bound_by": res["bbound_by"], "library_ms": None,
+            "max_abs_err": max([p[1] for p in parity] + [v["abs"] for v in bwd.values()]),
+            "ms": float(np.median(bwd["a"]["wrapper"][g])), "pair_ms": bwd["a"]["pair"][g],
+            "plain_ms": bwd["a"]["plain_ms"],
+            "bound_ms": bwd["a"]["bound"], "bound_by": bwd["a"]["bound_by"],
+            "library_ms": None,
         })
     alone = mesh["alone"]
     for name, replaces, err, ms, plain_ms, bound in (
@@ -2151,7 +2491,8 @@ def main():
             "bound_by": row["bound"][1], "library_ms": row["library_ms"],
         })
     log(f"backward kernel vs plain, max rel err per field over phases 2 and 5: "
-        f"{max([p[2] for p in parity] + [res['bwd_rel']]):.3e}")
+        f"{max([p[2] for p in parity] + [v['rel'] for v in bwd.values()]):.3e}; vs the "
+        f"reference renderer {res['ref_rel']:.3e}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

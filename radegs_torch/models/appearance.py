@@ -10,6 +10,9 @@ params: ``app_params = {"net": {name: tensor}, "embeddings": (2048, 64)}``,
 applied with ``torch.func.functional_call``, so the training loop's
 explicit Adam (and the checkpoint) treat them as plain tensors.
 
+The convolutions run in float32 on the card (``ops.conv.conv2d_fp32``),
+as the JAX package's do, whatever ``torch.backends.cudnn.allow_tf32`` says.
+
 Two details follow the JAX code, not its comments:
 - the pixel shuffle splits channels as the JAX NHWC reshape does, channel
   ``(i * r + j) * (C / r^2) + c`` (``F.pixel_shuffle`` reads ``c * r^2 + i *
@@ -29,6 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from radegs_torch.ops.conv import conv2d_fp32
+
 NUM_EMBEDDINGS = 2048
 EMBED_DIM = 64
 # flax's lecun_normal: a normal truncated at 2 sigma, its std corrected by
@@ -46,6 +51,13 @@ FLAX_PATHS = {
 }
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (stride 1) through ``conv2d_fp32``."""
+
+    def _conv_forward(self, x, weight, bias):
+        return conv2d_fp32(x, weight, bias, self.padding, self.groups)
+
+
 def pixel_shuffle(x, r: int = 2):
     """(N, C r^2, H, W) -> (N, C, H r, W r) in the JAX package's channel
     order: input channel (i r + j) C + c lands at (h r + i, w r + j, c)."""
@@ -58,7 +70,7 @@ def pixel_shuffle(x, r: int = 2):
 class UpsampleBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, device=None):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch // 4, out_ch, 3, padding=1, device=device)
+        self.conv = Conv2d(in_ch // 4, out_ch, 3, padding=1, device=device)
 
     def forward(self, x):
         return F.relu(self.conv(pixel_shuffle(x, 2)))
@@ -71,11 +83,11 @@ class AppearanceNetwork(nn.Module):
 
     def __init__(self, out_ch: int = 3, device="meta"):
         super().__init__()
-        self.conv_in = nn.Conv2d(3 + EMBED_DIM, 256, 3, padding=1, device=device)
+        self.conv_in = Conv2d(3 + EMBED_DIM, 256, 3, padding=1, device=device)
         self.ups = nn.ModuleList([UpsampleBlock(a, b, device=device)
                                   for a, b in ((256, 128), (128, 64), (64, 32), (32, 16))])
-        self.conv_mid = nn.Conv2d(16, 16, 3, padding=1, device=device)
-        self.conv_out = nn.Conv2d(16, out_ch, 3, padding=1, device=device)
+        self.conv_mid = Conv2d(16, 16, 3, padding=1, device=device)
+        self.conv_out = Conv2d(16, out_ch, 3, padding=1, device=device)
 
     def forward(self, x):
         x = F.relu(self.conv_in(x))

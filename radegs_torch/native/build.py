@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -109,6 +110,46 @@ def check_tensor(name: str, x, dtype, shape, device):
         raise ValueError(f"kernel input {name} must be a contiguous {dtype} tensor of shape "
                          f"{tuple(shape)} on {device}; got {x.dtype} {tuple(x.shape)} on "
                          f"{x.device}")
+
+
+def with_constants(text: str, constants: dict) -> str:
+    """A kernel source ``text`` with each ``constexpr <type> <name> = ...;``
+    of ``constants`` ({name: value}) set to its value; raises for a name the
+    source does not define."""
+    for const, value in constants.items():
+        pat = re.compile(rf"(constexpr \w+ {const} = )[^;]+;")
+        if pat.search(text) is None:
+            raise ValueError(f"the kernel source defines no constant {const}")
+        text = pat.sub(rf"\g<1>{value};", text)
+    return text
+
+
+def build_copies(copies: dict, out_dir) -> dict:
+    """Copies of kernel sources, for measurements and tests of a kernel's
+    parameters (the package loads only its own sources, through ``load``):
+    ``copies`` maps a label to (source text, directory of its headers). Each
+    is compiled with NVCC_FLAGS into ``out_dir/<label>/``, one ``nvcc`` each,
+    all at once. Returns {label: (ctypes.CDLL, compiler output)}; raises if
+    any fails."""
+    jobs = {}
+    for label, (text, include) in copies.items():
+        d = Path(out_dir) / re.sub(r"\W+", "_", label)
+        d.mkdir(parents=True, exist_ok=True)
+        cu, so = d / "kernel.cu", d / "kernel.so"
+        cu.write_text(text)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(include), "-o", str(so), str(cu)]
+        jobs[label] = so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)
+    out, failed = {}, []
+    for label, (so, proc) in jobs.items():
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{label} (nvcc exit {proc.returncode}):\n{text}")
+        else:
+            out[label] = ctypes.CDLL(str(so)), text
+    if failed:
+        raise RuntimeError("CUDA kernel copy build failed: " + "\n".join(failed))
+    return out
 
 
 def build_log(name: str) -> str:

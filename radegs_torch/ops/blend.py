@@ -46,6 +46,7 @@ N_FEAT = 24
 
 N_GRAD = 25
 N_AUX = 28
+INST_ROW = 32  # floats per instance row of the backward kernel's scratch (ROW)
 # the raw outputs that carry a cotangent (med_pos does not)
 DIFF_KEYS = ("color_raw", "weight", "dist_raw", "coord_raw", "normal_raw", "t_final",
              "med_t", "med_coord")
@@ -382,14 +383,29 @@ def pack_aux(fwd_out, cot):
     return torch.cat([rows(x.to(torch.float32)) for x in parts], dim=1).contiguous()
 
 
+def instance_segments(gauss_id, P: int):
+    """Each Gaussian's instances together, in sorted-position order (a
+    stable sort of ``gauss_id``): ``rank`` (N,) int32, the row of each
+    instance in that order, and ``seg`` (P + 1,) int32, Gaussian g's first
+    row."""
+    gid_sorted, perm = torch.sort(gauss_id, stable=True)
+    dev = gauss_id.device
+    seg = torch.searchsorted(gid_sorted, torch.arange(P + 1, dtype=torch.int32, device=dev))
+    rank = torch.empty(perm.shape, dtype=torch.int32, device=dev)
+    rank[perm] = torch.arange(perm.numel(), dtype=torch.int32, device=dev)
+    return rank, seg.to(torch.int32)
+
+
 def blend_backward(binning: TileBinning, inputs, fwd_out, cot, width: int, height: int,
                    tiles_per_block: int = 2):
     """Per-Gaussian gradients of the blend (the dict of ``grads_from_rows``).
     On CUDA tensors it launches the kernel pair of ``csrc/blend_bwd.cu`` or
-    raises: the per-tile walk writes one 25-float row per instance at its
-    sorted position, then a segment sum adds each Gaussian's rows in
-    sorted-position order (deterministic, no atomics). On CPU tensors it runs
-    ``blend_backward_torch`` over ``binning.tile_gauss``."""
+    raises: the per-tile walk writes one row of 25 sums per instance, the
+    rows of each Gaussian together, then a segment sum adds each Gaussian's
+    rows in sorted-position order (deterministic, no atomics). ``tiles_per_block``
+    (1 or 2) is the tiles per CUDA block of the walk; both give the same
+    bits. On CPU tensors it runs ``blend_backward_torch`` over
+    ``binning.tile_gauss``."""
     if binning.tile_count.device.type == "cpu":
         return blend_backward_torch(_plain_tile_gauss(binning), inputs, fwd_out, cot,
                                     width, height)
@@ -400,18 +416,14 @@ def blend_backward(binning: TileBinning, inputs, fwd_out, cot, width: int, heigh
     med_pos = fwd_out["med_pos"].to(torch.int32).contiguous()
     build.check_tensor("aux", aux, torch.float32, (T, N_AUX, TILE * TILE), dev)
     build.check_tensor("med_pos", med_pos, torch.int32, (T, TILE * TILE), dev)
-    # each Gaussian's instances, in sorted-position order (a stable sort)
-    gid_sorted, perm = torch.sort(binning.gauss_id, stable=True)
-    perm = perm.to(torch.int32)
-    seg = torch.searchsorted(gid_sorted, torch.arange(P + 1, dtype=torch.int32, device=dev))
-    seg = seg.to(torch.int32)
-    inst_rows = torch.empty((N, N_GRAD), dtype=torch.float32, device=dev)
+    rank, seg = instance_segments(binning.gauss_id, P)
+    inst_rows = torch.empty((N, INST_ROW), dtype=torch.float32, device=dev)
     grad = torch.empty((P, N_GRAD), dtype=torch.float32, device=dev)
     fn = build.entry("blend_bwd", 10, 7)
     with torch.cuda.device(dev):
         rc = fn(feat.data_ptr(), binning.gauss_id.data_ptr(),
                 binning.tile_start.data_ptr(), binning.tile_count.data_ptr(),
-                aux.data_ptr(), med_pos.data_ptr(), perm.data_ptr(), seg.data_ptr(),
+                aux.data_ptr(), med_pos.data_ptr(), rank.data_ptr(), seg.data_ptr(),
                 inst_rows.data_ptr(), grad.data_ptr(), T, tiles_x, N, P, width, height,
                 tiles_per_block, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

@@ -3,17 +3,17 @@ utils/loss_utils.py:17-63): the 11-tap Gaussian window (sigma 1.5), applied
 per channel and separably, with zero ("same") padding.
 
 The JAX package writes the filter as shifted multiply-adds for the TPU;
-here it is two depthwise ``F.conv2d`` calls over the five filtered maps at
-once. On the card a float32 convolution goes through cuDNN, in TF32 (about
-three decimal digits) while ``torch.backends.cudnn.allow_tf32`` is True,
-PyTorch's default, in the forward and in the backward alike: set it False
-for the JAX package's float32 filter, as ``chip_smoke.py`` does."""
+here it is two depthwise convolutions over the five filtered maps at once,
+through ``ops.conv.conv2d_fp32``: float32 on the card whatever
+``torch.backends.cudnn.allow_tf32`` says (cuDNN would run them in TF32 by
+default), as the JAX package's filter is."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from radegs_torch.ops.conv import conv2d_fp32
 
 C1 = 0.01**2
 C2 = 0.03**2
@@ -38,10 +38,11 @@ def _filter2d(maps, taps):
     """Separable depthwise 'same' Gaussian filter of (C, H, W) maps."""
     C = maps.shape[0]
     k = taps.shape[0]
-    w = torch.as_tensor(taps, device=maps.device)
-    x = F.conv2d(maps[None], w.reshape(1, 1, k, 1).expand(C, 1, k, 1),
-                 padding=(k // 2, 0), groups=C)
-    x = F.conv2d(x, w.reshape(1, 1, 1, k).expand(C, 1, 1, k), padding=(0, k // 2), groups=C)
+    w = torch.as_tensor(taps, dtype=maps.dtype, device=maps.device)
+    x = conv2d_fp32(maps[None], w.reshape(1, 1, k, 1).expand(C, 1, k, 1),
+                    padding=(k // 2, 0), groups=C)
+    x = conv2d_fp32(x, w.reshape(1, 1, 1, k).expand(C, 1, 1, k), padding=(0, k // 2),
+                    groups=C)
     return x[0]
 
 
