@@ -80,9 +80,13 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
       surface points, then 10 over seeded subsets of 7c's point counts (the
       seeds of its first SDF pass, the crossing edges of each later one);
       each plain version once (B5 on the full view, B6 on a seeded 16k-point
-      subset) and each kernel's bound. The 1M launch must equal the subset's
-      launch bitwise on the subset, with tiles of more than 256 points and
-      subset points in their later work items.
+      subset) and each kernel's bound, the least work on these inputs (B5
+      gates each tile's 545 distinct samples once, both take the exp only
+      where alpha reaches 1/255) and, beside it, the full-gate count (every
+      sample of every pixel or point gated, the exp wherever the power test
+      passes). The 1M launch must equal the subset's launch bitwise on the
+      subset, with tiles of more than 32 points (one work item) and subset
+      points in their later work items.
    e. The witness of the geometric checks: the 50k scene of 7c without its
       noise (capacity 2^18, so the default render budget covers the demand).
       TSDF (at max_resolution 384: cut from 7b's 768 for time) and tetra as
@@ -133,14 +137,23 @@ rebuilt from copies of its source with other constants (``BWD_VARIANTS``,
 held to the plain version too) or a piece taken out (``BWD_PROBES``,
 timed only) and, when one is named, the backward pair built from another
 checkout's ``radegs_torch/csrc`` (whose C entry takes ``rank``).
+``python3 chip_smoke.py --integrate [CSRC]`` runs only phase 7a and phase
+7d (B6 also at SDF_PASS_POINTS, the counts of phase 7c's SDF passes),
+beside the integrate kernels rebuilt from copies of their sources with
+other constants or a piece taken out (``INTEGRATE_VARIANTS``) and, when
+one is named, another
+checkout's two integrate kernels and its B6 rebuilt with 32-point work
+items: every output equal to this tree's bitwise, each launch timed alone
+in a CUDA graph, this tree's and the other's in turns.
 ``python3 chip_smoke.py --profile`` instead runs the setup and a
 torch.profiler pass over both scenes' serving and over 5 training
 iterations of the 100k scene (device time by operation, busy share).
 ``python3 chip_smoke.py --train100k`` runs only phase 3's 100k serving at
-G=2 and phase 6's 100 iterations of the 100k scene, and ``python3
+G=2 and phase 6's 100 iterations of the 100k scene, ``python3
 chip_smoke.py --probes`` only phase 9 (on the dense scene it writes and
-bins as phase 4 does): copied into a checkout of another commit and run
-there, either compares the two in one call.
+bins as phase 4 does) and ``python3 chip_smoke.py --tetra`` only phase 7c:
+copied into a checkout of another commit and run there, each compares the
+two in one call.
 
 Every phase that fails raises, and the script exits non-zero without the
 result lines. The last three lines are the card's name and power limit, a
@@ -190,16 +203,20 @@ OPS_WALKED, OPS_BLENDED = 19, 42
 OPS_BWD_WALKED, OPS_BWD_BLENDED, OPS_BWD_SEGMENT = 19, 125, 25
 # FP32 operations of the integrate kernels, counted the same way. Per walked
 # pair, the 5 sub-pixel samples' gate: 2 deltas, 9 for the conic form, the
-# power test = 12 each, 60; a sample whose power test passes 10 more (~4 for
-# expf, the opacity product, the 0.99 clamp, the 1/255 test, 1 - alpha, the
-# T product, the 1e-4 test). integrate_image.cu: a sample that takes the
-# contributor 5 more (plane depth 4, max 1), a centre sample that does 11
-# (weight 1, colour 6, alpha 1, depth sum 2, median test 1).
+# power test = 12 each, 60 (B5's least walk: 12 at each of a tile's 545
+# distinct samples, its 256 centres and 17 x 17 corners, per instance); a
+# sample whose power test passes 10 more (~4 for expf, the opacity product,
+# the 0.99 clamp, the 1/255 test, 1 - alpha, the T product, the 1e-4 test;
+# the least walk: only where alpha reaches 1/255). integrate_image.cu: a
+# sample that takes the contributor 5 more (plane depth 4, max 1), a centre
+# sample that does 11 (weight 1, colour 6, alpha 1, depth sum 2, median
+# test 1).
 # integrate_points.cu: a used pair 37 (deltas 2, t_at 4, the ill-conditioned
 # test and dz 3, the quadratic form 12 products + 5 sums + 2 scalings, ~4
 # for expf, opacity product, clamp, the plane test 2), an included pair 5
 # (the 1/255 test, opacity sum 2, transmittance 2)
-OPS_INT_PAIR, OPS_INT_POWER = 60, 10
+OPS_SAMPLE, OPS_INT_POWER = 12, 10
+OPS_INT_PAIR, TILE_SAMPLES = 5 * OPS_SAMPLE, 256 + 17 * 17
 OPS_IMG_TAKEN, OPS_IMG_CENTRE = 5, 11
 OPS_PT_USED, OPS_PT_INC = 37, 5
 ABS_TOL, MED_POS_TOL = 1e-4, 1e-4
@@ -220,6 +237,25 @@ BWD_REL_TOL = 1e-4  # of max |plain| per gradient field
 BWD_VARIANTS = {"K=2": {"K": 2}, "RB=16": {"RB": 16}, "STAGES=2": {"STAGES": 2},
                 "MIN_TILES=6": {"MIN_TILES": 6}, "ROW=25": {"ROW": 25},
                 "SEG_BATCH=8": {"SEG_BATCH": 8}}
+# phase 7c's SDF-pass point counts (the decimated seeds of its first pass, the
+# crossing edges of each binary-search step, as a full run of this script
+# finds them): --integrate times B6 at them, since it does not run 7c
+SDF_PASS_POINTS = (247_815, 130_905)
+# integrate kernels built from copies of this tree's sources with other
+# constants or with a piece of text replaced, checked and timed beside it by
+# --integrate: {label: (kernel, {constant: value} or (old, new))}: the exp
+# taken wherever the power test passes (no skip_below), work items (warps) a
+# B6 block at the same 32 warps a SM, rows a round, ring depth
+NO_SKIP = "-__int_as_float(0x7f800000)"  # -inf: skip_below never skips
+INTEGRATE_VARIANTS = {
+    "B6 no exp skip": ("integrate_points", ("f[16], sx[k]", f"{NO_SKIP}, sx[k]")),
+    "B6 WARPS=8": ("integrate_points", {"WARPS": 8, "MIN_BLOCKS": 4}),
+    "B6 RB=16": ("integrate_points", {"RB": 16}),
+    "B6 STAGES=3": ("integrate_points", {"STAGES": 3}),
+    "B5 no exp skip": ("integrate_image", ("f[12], sx", f"{NO_SKIP}, sx")),
+    "B5 RB=32": ("integrate_image", {"RB": 32}),
+    "B5 STAGES=2": ("integrate_image", {"STAGES": 2}),
+}
 # copies of csrc/blend_bwd.cu with one piece taken out, timed beside it by --bwd (not
 # checked: their gradients are wrong by design): the warp reduction replaced
 # by a lane's own sum, and the walk cut to its gates (nothing blends)
@@ -1248,18 +1284,28 @@ def frustum_points(cam, n_in, n_out, n_behind, rng):
     return ((p_view - T) @ R.T).astype(np.float32)  # p_view = R^T p + T
 
 
-def integrate_bound_ms(kind, P, n_inst, T, n_points, work):
+def integrate_bound_ms(kind, P, n_inst, T, n_points, work, least=True):
     """Least time for an integrate kernel's work on these inputs: features,
     gauss_id and tile ranges read once, the outputs written once (B5: 13
     rows + the median index per pixel; B6: the points' xy and depth read,
-    one alpha written), and the counted walk at FP32 peak."""
+    one alpha written), and the counted walk at FP32 peak. The full-gate walk
+    (``least=False``): each pixel's or point's 5 samples gated, the exp
+    wherever the power test passes; the least walk: B5 gates each tile's
+    distinct samples once, and both take the exp only where alpha reaches
+    1/255."""
     if kind == "image":
         n_bytes = P * 12 * 4 + n_inst * 4 + T * 8 + T * 14 * 256 * 4
-        ops = (OPS_INT_PAIR * work["n_pairs"] + OPS_INT_POWER * work["n_power"]
-               + OPS_IMG_TAKEN * work["n_taken"] + OPS_IMG_CENTRE * work["n_centre"])
+        if least:
+            ops = (OPS_SAMPLE * TILE_SAMPLES * (work["n_pairs"] // 256)
+                   + OPS_INT_POWER * work["n_lat_alpha"] + OPS_IMG_TAKEN * work["n_lat_taken"]
+                   + OPS_IMG_CENTRE * work["n_centre"])
+        else:
+            ops = (OPS_INT_PAIR * work["n_pairs"] + OPS_INT_POWER * work["n_power"]
+                   + OPS_IMG_TAKEN * work["n_taken"] + OPS_IMG_CENTRE * work["n_centre"])
     else:
         n_bytes = P * 16 * 4 + n_inst * 4 + T * 8 + n_points * 16
-        ops = (OPS_INT_PAIR * work["n_pairs"] + OPS_INT_POWER * work["n_power"]
+        ops = (OPS_INT_PAIR * work["n_pairs"]
+               + OPS_INT_POWER * work["n_alpha" if least else "n_power"]
                + OPS_PT_USED * work["n_used"] + OPS_PT_INC * work["n_inc"])
     ops = int(ops)
     t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
@@ -1566,10 +1612,212 @@ def mesh_witness(workdir):
                 cull=dict(wall=t_cull, n_faces=len(cf), n_kept=len(pf)))
 
 
-def integrate_alone(res, sdf_points=()):
+def integrate_entry(lib, kernel, text):
+    """``radegs_<kernel>`` of a built library, with its ctypes signature read
+    from the kernel's source ``text`` (B5 may take a tile order, B6 the
+    points per item; an older checkout's entries take neither). Returns
+    (function, pointer count, int count)."""
+    import ctypes
+
+    fn = getattr(lib, f"radegs_{kernel}")
+    if kernel == "integrate_image":
+        n_ptr, n_int = (7 if "const void* tile_order" in text else 6), 2
+    else:
+        n_ptr, n_int = 10, (2 if "int points_per_item" in text else 1)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn, n_ptr, n_int
+
+
+def integrate_libraries(other):
+    """The integrate C entries that --integrate holds beside this tree's:
+    copies of this tree's sources with other constants or a piece of text
+    replaced (INTEGRATE_VARIANTS) and, when ``other`` names the csrc
+    directory of another checkout, its two integrate kernels and its
+    integrate_points.cu rebuilt with ITEM = BATCH = 32 (one warp a work
+    item, the items cut at 32), all built at once
+    (``build.build_copies``, into build/chip_smoke/integrate/). Prints each
+    build's ptxas register and spill lines. Returns {label: (kernel,
+    ``integrate_entry``, items, floats)}: ``items`` None for this tree's work
+    items, else the points per item of a list in tile order, stable in the
+    point id (``tile_items``); ``floats`` the width of the feature rows
+    the kernel reads (its first columns of this tree's rows)."""
+    from radegs_torch.native import build
+
+    def floats(text):
+        return 4 * int(re.search(r"constexpr int NF = (\d+);", text).group(1))
+
+    copies, meta = {}, {}
+    for label, (kernel, edit) in INTEGRATE_VARIANTS.items():
+        text = (build.CSRC / f"{kernel}.cu").read_text()
+        if isinstance(edit, dict):
+            text = build.with_constants(text, edit)
+        else:
+            check(edit[0] in text, f"integrate variant {label}: no {edit[0]!r} in {kernel}.cu")
+            text = text.replace(*edit)
+        copies[label], meta[label] = (text, build.CSRC), (kernel, None)
+    if other:
+        for kernel in ("integrate_image", "integrate_points"):
+            text = open(os.path.join(other, f"{kernel}.cu")).read()
+            item = re.search(r"constexpr int ITEM = (\d+);", text)
+            copies[f"other {kernel}"] = text, other
+            meta[f"other {kernel}"] = kernel, (int(item.group(1)) if item else None)
+        text = copies["other integrate_points"][0]
+        copies["other integrate_points ITEM=32"] = (
+            build.with_constants(text, {"ITEM": 32, "BATCH": 32}), other)
+        meta["other integrate_points ITEM=32"] = "integrate_points", 32
+    libs = {}
+    for label, (lib, out) in build.build_copies(
+            copies, os.path.join(ROOT, "build", "chip_smoke", "integrate")).items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {label}: {line.strip()}")
+        kernel, items = meta[label]
+        text = copies[label][0]
+        libs[label] = kernel, integrate_entry(lib, kernel, text), items, floats(text)
+    return libs
+
+
+def tile_items(pts, T, per_item):
+    """Work items of the block-per-item design: valid points in tile order,
+    stable in the id, each tile's run cut into items of at most ``per_item``
+    points."""
+    dev = pts.tile.device
+    vid = pts.valid.nonzero()[:, 0]
+    tiles_s, idx = torch.sort(pts.tile[vid], stable=True)
+    counts = torch.bincount(tiles_s, minlength=T)
+    n_items = (counts + per_item - 1) // per_item
+    item_tile = torch.repeat_interleave(torch.arange(T, device=dev), n_items)
+    first = torch.cumsum(n_items, 0) - n_items
+    k = torch.arange(item_tile.shape[0], device=dev) - first[item_tile]
+    item_start = (torch.cumsum(counts, 0) - counts)[item_tile] + k * per_item
+    item_count = torch.clamp_max(counts[item_tile] - k * per_item, per_item)
+    return tuple(x.to(torch.int32) for x in (vid[idx], item_tile, item_start, item_count))
+
+
+class PointLaunch:
+    """One B6 launch through a C entry on prepared work items: this tree's
+    (``per_item`` None; heaviest tile first as its wrapper lists them, or in
+    tile order) or a list cut at ``per_item`` (``tile_items``, in tile
+    order)."""
+
+    def __init__(self, binning, pfeat_table, pts, T, per_item=None, heavy_first=True):
+        from radegs_torch.ops import integrate as ig
+
+        if per_item is None:
+            self.order, it, ist, ic = ig.point_work_items(pts, binning.tile_count)
+            if not heavy_first:  # back to tile order, the unused entries last
+                perm = torch.argsort(torch.where(ic > 0, ist, ist.numel() + pts.tile.numel()))
+                it, ist, ic = it[perm], ist[perm], ic[perm]
+        else:
+            self.order, it, ist, ic = tile_items(pts, T, per_item)
+        self.per_item = ig.POINTS_PER_ITEM if per_item is None else per_item
+        self.items = it, ist, ic
+        sel = self.order.long()
+        self.pfeat = torch.stack([pts.xy[sel, 0], pts.xy[sel, 1], pts.depth[sel],
+                                  torch.zeros_like(pts.depth[sel])], 1).contiguous()
+        self.out = torch.ones((pts.xy.shape[0],), dtype=torch.float32, device=pts.xy.device)
+        self.binning, self.table = binning, pfeat_table
+
+    def __call__(self, entry):
+        (fn, _, n_int), b, (it, ist, ic) = entry, self.binning, self.items
+        ints = (it.shape[0], self.per_item)[:n_int]
+        rc = fn(self.table.data_ptr(), b.gauss_id.data_ptr(), b.tile_start.data_ptr(),
+                b.tile_count.data_ptr(), self.pfeat.data_ptr(), self.order.data_ptr(),
+                it.data_ptr(), ist.data_ptr(), ic.data_ptr(), self.out.data_ptr(), *ints,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"integrate_points launch failed with CUDA error {rc}")
+        return self.out
+
+
+def in_turns(calls, first, reps=5):
+    """Device ms of each call alone (``graph_ms``, ``reps`` launches), the
+    labels ``first`` (this tree, and the other checkout's if given) timed in
+    turns around the rest: first, reversed(first), the rest, first,
+    reversed(first). Returns {label: [ms, ...]}."""
+    rest = [k for k in calls if k not in first]
+    seq = list(first) + list(reversed(first)) + rest + list(first) + list(reversed(first))
+    ms = {}
+    for k in seq:
+        ms.setdefault(k, []).append(round(graph_ms(calls[k], reps), 4))
+    return ms
+
+
+def integrate_ab(libs, binning, feat, pfeat, point_sets):
+    """--integrate at the dense view 0: this tree's B5 and B6 against the C
+    entries of ``libs`` on the same inputs. Every output must equal this
+    tree's bit for bit (B5 in natural and heaviest-first tile order where the
+    kernel takes one; B6 over each of ``point_sets``, {name: points}). Device
+    ms per launch, alone in CUDA graphs, in turns (``in_turns``)."""
+    from radegs_torch.native import build
+    from radegs_torch.ops import integrate as ig
+
+    W, H, T = WIDTH, HEIGHT, binning.tile_count.numel()
+    tiles_x = (W + 15) // 16
+    tree = {k: integrate_entry(build.load(k), k, (build.CSRC / f"{k}.cu").read_text())
+            for k in ("integrate_image", "integrate_points")}
+    other = [k for k in libs if k.startswith("other ")]
+    heavy = ig.heaviest_first(binning.tile_count)
+
+    def image_call(entry, order=None, floats=ig.N_IMG_FEAT):
+        fn, n_ptr, _ = entry
+        rows = torch.empty((T, 13, 256), dtype=torch.float32, device=DEVICE)
+        med = torch.empty((T, 256), dtype=torch.int32, device=DEVICE)
+        table = feat[:, :floats].contiguous()
+        head = [table.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
+                binning.tile_count.data_ptr()]
+        if n_ptr == 7:
+            head.append(order.data_ptr())
+
+        def call(table=table):  # the table lives as long as the call
+            rc = fn(*head, rows.data_ptr(), med.data_ptr(), T, tiles_x,
+                    torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"integrate_image launch failed with CUDA error {rc}")
+            return rows, med
+        return call
+
+    # this tree's wrapper launches the tiles heaviest first
+    calls = {"tree": image_call(tree["integrate_image"], heavy),
+             "tree, tiles in natural order": image_call(
+                 tree["integrate_image"], torch.arange(T, dtype=torch.int32, device=DEVICE))}
+    for label, (kernel, entry, _, floats) in libs.items():
+        if kernel == "integrate_image":
+            calls[label] = image_call(entry, heavy if entry[1] == 7 else None, floats)
+    ref = [x.clone() for x in calls["tree"]()]
+    same = {k: all(torch.equal(a, b) for a, b in zip(c(), ref)) for k, c in calls.items()}
+    img_first = ["tree"] + [k for k in other if k.endswith("integrate_image")]
+    img_ms = in_turns(calls, img_first)
+    log(f"--integrate B5 at the dense view 0 ({T} tiles): equal to this tree bitwise {same}; "
+        f"device ms per launch (graph of 5, in turns) {img_ms}")
+    check(all(same.values()), f"B5 outputs differ from this tree's: {same}")
+
+    for name, pts in point_sets.items():
+        entry = tree["integrate_points"]
+        launches = {"tree": (PointLaunch(binning, pfeat, pts, T), entry),
+                    "tree, points in tile order": (
+                        PointLaunch(binning, pfeat, pts, T, ig.POINTS_PER_ITEM), entry),
+                    "tree, items in tile order": (
+                        PointLaunch(binning, pfeat, pts, T, heavy_first=False), entry)}
+        for label, (kernel, lib_entry, items, floats) in libs.items():
+            if kernel == "integrate_points":
+                launches[label] = (PointLaunch(binning, pfeat[:, :floats].contiguous(), pts, T,
+                                               items), lib_entry)
+        calls = {k: (lambda lp=lp, fn=fn: lp(fn)) for k, (lp, fn) in launches.items()}
+        ref = calls["tree"]().clone()
+        same = {k: same_bits(c(), ref) for k, c in calls.items()}
+        first = ["tree"] + [k for k in other if k.endswith("integrate_points")]
+        pt_ms = in_turns(calls, first)
+        log(f"--integrate B6 over {name} ({int(pts.valid.sum())} valid, "
+            f"{launches['tree'][0].items[0].shape[0]} work items): equal to this tree bitwise "
+            f"{same}; device ms per launch (graph of 5, in turns) {pt_ms}")
+        check(all(same.values()), f"B6 outputs over {name} differ from this tree's: {same}")
+
+
+def integrate_alone(res, sdf_points=(), libs=None):
     """Phase 7d: the integrate kernels alone at the dense view 0 (launches
     here are not counted); B6 also over seeded subsets of the 1M points of
-    the sizes in ``sdf_points`` (phase 7c's SDF passes)."""
+    the sizes in ``sdf_points`` (phase 7c's SDF passes). Given ``libs``
+    (--integrate), ``integrate_ab`` on the same inputs."""
     from radegs_torch.ops import integrate as ig
     from radegs_torch.ops.binning import bin_gaussians, round_budget
     from radegs_torch.renderer import prepare
@@ -1625,7 +1873,8 @@ def integrate_alone(res, sdf_points=()):
         # rank in its tile's run (of the 1M points) says how many of its
         # points a later item (rank >= 256) walked
         counts_pts = torch.bincount(pts.tile[pts.valid], minlength=T)
-        order = ig.point_work_items(pts, T)[0].to(torch.int64)
+        order = ig.point_work_items(pts, binning.tile_count)[0][:int(pts.valid.sum())]
+        order = order.to(torch.int64)
         first = torch.cumsum(counts_pts, 0) - counts_pts
         rank = torch.full((N,), -1, dtype=torch.int64, device=dev)
         rank[order] = torch.arange(order.numel(), device=dev) - first[pts.tile[order]]
@@ -1647,41 +1896,52 @@ def integrate_alone(res, sdf_points=()):
             timing.setdefault(name, []).append(time_ms(fn, 10))
         ib = integrate_bound_ms("image", P, n_inst, T, 0, iwork)
         pb = integrate_bound_ms("points", P, n_inst, T, int(pts.valid.sum()), pwork)
+        ib_full = integrate_bound_ms("image", P, n_inst, T, 0, iwork, least=False)
+        pb_full = integrate_bound_ms("points", P, n_inst, T, int(pts.valid.sum()), pwork,
+                                 least=False)
         # B6 at the point counts the extractions launch it on, the work
         # counted as for the 1M points
-        small = []
+        small, point_sets = [], {f"{N} points": pts}
         for k in sdf_points:
             idx = torch.from_numpy(np.sort(rng.permutation(N)[:k])).to(dev)
             pk = ig.PointProjection(*(f[idx] for f in pts))
+            point_sets[f"{k} points"] = pk
             ms_k = time_ms(lambda: ig.integrate_points_alpha(binning, pfeat, pk, W, H), 10)
             pairs_k = int(counts[pk.tile[pk.valid]].sum())
             share_k = pairs_k / max(int(pwork_sub["n_pairs"]), 1)
             work_k = {"n_pairs": pairs_k, **{key: int(v) * share_k for key, v in pwork_sub.items()
                                              if key != "n_pairs"}}
-            small.append((k, ms_k, integrate_bound_ms("points", P, n_inst, T,
-                                                      int(pk.valid.sum()), work_k)[0]))
+            small.append((k, ms_k, *(integrate_bound_ms("points", P, n_inst, T,
+                                                        int(pk.valid.sum()), work_k, least)[0]
+                                     for least in (True, False))))
     log(f"phase 7d integrate kernels alone at the dense view 0: {n_inst} instances "
         f"(radius-only demand {need}, budget {budget}), max per tile "
         f"{int(binning.max_tile_count)}, tile_overflow {int(binning.tile_overflow)}; "
         f"integrate_image ms (2 x 10 launches) {timing['image']}, plain {img_plain_ms:.3f} "
         f"(full view), bound {ib[0]:.4f} ms by {ib[1]} ({ib[2]} bytes, {ib[3]} FP32 "
-        f"operations; work {dict((k, int(v)) for k, v in iwork.items())}); vs plain: float "
+        f"operations; full-gate bound {ib_full[0]:.4f} ms, {ib_full[3]} operations; work "
+        f"{dict((k, int(v)) for k, v in iwork.items())}); vs plain: float "
         f"rows {img_err:.3e}, median flips {flips:.3e}, median err {med_err:.3e}; "
         f"integrate_points over {N} points ({int(pts.valid.sum())} valid; at most "
         f"{max_tile_pts} in a tile, {n_big} tiles over {ig.POINTS_PER_ITEM}) ms (2 x 10 "
         f"launches) {timing['points']}, plain {pt_plain_ms:.3f} on a 16384-point subset, "
-        f"bound {pb[0]:.4f} ms by {pb[1]} ({pb[2]} bytes, {pb[3]} FP32 operations; work "
+        f"bound {pb[0]:.4f} ms by {pb[1]} ({pb[2]} bytes, {pb[3]} FP32 operations; full-gate "
+        f"bound {pb_full[0]:.4f} ms, {pb_full[3]} operations; work "
         f"{dict((k, int(v)) for k, v in pwork.items())}); subset alpha err {a_err:.3e}; the "
         f"1M launch equals the subset's launch bitwise: {split_same} ({n_later} of the "
         f"subset's points in a later work item of their tile); at the SDF passes' point "
-        f"counts (points, ms of 10 launches, bound ms): {small}")
+        f"counts (points, ms of 10 launches, bound ms, full-gate bound ms): {small}")
     check(img_err <= ABS_TOL and a_err <= ABS_TOL, f"7d kernel vs plain: {img_err}, {a_err}")
     check(flips <= MED_POS_TOL and med_err == 0.0, f"7d median flips {flips}, err {med_err}")
     check(max_tile_pts > ig.POINTS_PER_ITEM and n_later > 0,
           f"7d: no tile's run was split into work items ({max_tile_pts} points at most)")
     check(split_same, "7d: the 1M-point launch differs from the subset's launch")
+    if libs is not None:
+        with torch.no_grad():
+            integrate_ab(libs, binning, feat, pfeat, point_sets)
     return dict(img_ms=float(np.median(timing["image"])), pt_ms=float(np.median(timing["points"])),
                 img_plain_ms=img_plain_ms, pt_plain_ms=pt_plain_ms, img_bound=ib, pt_bound=pb,
+                img_bound_full=ib_full, pt_bound_full=pb_full,
                 img_err=img_err, a_err=a_err, pt_small=small)
 
 
@@ -2385,6 +2645,28 @@ def train_ab(workdir):
     train_100k(path, cap, cams, budget)
 
 
+def tetra_only(workdir):
+    """``--tetra``: phase 7c alone, the Marching Tetrahedra extraction of the
+    50k-splat scene (its SDF passes run B6 at the sizes of the main path)."""
+    views = mesh_views()
+    path = os.path.join(workdir, "surface50k.ply")
+    state = load_scene(path, scene_ply(path, "surface50k"), views)
+    _, verts, _ = mesh_tetra(state, views, workdir, f"7c tetra of the {TETRA_N}-splat scene")
+    mesh_geometry(verts, "7c tetra")
+
+
+def integrate_only(workdir, other):
+    """``--integrate [CSRC]``: phase 7a and phase 7d alone (B6 also at
+    SDF_PASS_POINTS), beside INTEGRATE_VARIANTS and, given the csrc directory
+    of another checkout, its integrate kernels (``integrate_libraries``)."""
+    parity = [integrate_parity(), integrate_parity(250, 190, (1.6, 0, 0))]
+    libs = integrate_libraries(other)
+    dpath = os.path.join(workdir, "dense.ply")
+    integrate_alone(dict(dpath=dpath, dcap=scene_ply(dpath, "dense")), SDF_PASS_POINTS, libs)
+    log(f"integrate kernels vs plain, max abs err over phase 7a: "
+        f"{max(p[0] for p in parity):.3e}")
+
+
 def backward_only(workdir, other):
     """``--bwd [CSRC]``: phase 2, the reference check, the fault C1 witness
     and phase 5's backward at its three shapes, beside BWD_VARIANTS,
@@ -2428,6 +2710,16 @@ def main():
             backward_only(tmp, sys.argv[2] if len(sys.argv) > 2 else None)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return
+    if sys.argv[1:2] == ["--integrate"]:
+        with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+            integrate_only(tmp, sys.argv[2] if len(sys.argv) > 2 else None)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return
+    if sys.argv[1:] == ["--tetra"]:
+        with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+            tetra_only(tmp)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return
     if sys.argv[1:] == ["--train100k"]:
         with tempfile.TemporaryDirectory(dir=workdir) as tmp:
             train_ab(tmp)
@@ -2467,18 +2759,18 @@ def main():
             "library_ms": None,
         })
     alone = mesh["alone"]
-    for name, replaces, err, ms, plain_ms, bound in (
-            ("integrate_image", "radegs_tpu/ops/pallas_integrate.py:258",
-             max([p[1] for p in mesh["parity"]] + [alone["img_err"]]), alone["img_ms"],
-             alone["img_plain_ms"], alone["img_bound"]),
-            ("integrate_points", "radegs_tpu/ops/pallas_integrate.py:62",
-             max([p[2] for p in mesh["parity"]] + [alone["a_err"]]), alone["pt_ms"],
-             alone["pt_plain_ms"], alone["pt_bound"])):
-        kernels.append({
+    for name, key, replaces, err in (
+            ("integrate_image", "img", "radegs_tpu/ops/pallas_integrate.py:258",
+             max([p[1] for p in mesh["parity"]] + [alone["img_err"]])),
+            ("integrate_points", "pt", "radegs_tpu/ops/pallas_integrate.py:62",
+             max([p[2] for p in mesh["parity"]] + [alone["a_err"]]))):
+        bound = alone[f"{key}_bound"]
+        kernels.append({  # at the dense view 0 (B6 over 1M points): ms per wrapper call
             "name": name, "route": "cuda", "source": f"radegs_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": mesh["launches"][name], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": None,
+            "ms": alone[f"{key}_ms"], "plain_ms": alone[f"{key}_plain_ms"],
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "bound_full_gate_ms": alone[f"{key}_bound_full"][0], "library_ms": None,
         })
     for probe, line in zip(("aligned", "window", "mm_highest", "tri_mm"), (43, 53, 72, 86)):
         row = probes["rows"][probe]

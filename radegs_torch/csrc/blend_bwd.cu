@@ -110,25 +110,6 @@ constexpr int OFF_MASK = OFF_PART + 2 * RB * NW * N_GRAD;
 constexpr int TILE_FLOATS = (OFF_MASK + 2 * NW + 3) / 4 * 4;
 constexpr int TILE_BYTES = TILE_FLOATS * 4;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void copy16(float4* dst, const float4* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// wait until at most N of this thread's copy groups are still in flight
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // Barrier ID (1 + the tile's index in its block; 0 is __syncthreads') of
 // one tile's NT threads; returns whether `pred` holds on every one of them.
 // The ID is an immediate, so ptxas reserves only the barriers in use.

@@ -3,8 +3,12 @@
 // arithmetic that decides whether a contributor is skipped, blended, or ends
 // its pixel. Both kernels take these decisions through the functions below,
 // so the backward re-walk includes exactly the contributors the forward did.
+// Also the cp.async helpers of the kernels that gather rows into a ring
+// (blend_bwd.cu and the integrate kernels).
 
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -44,6 +48,28 @@ __device__ __forceinline__ float gate_alpha(float opacity, float falloff) {
 // (and the contributor is excluded) when it falls below T_EPS.
 __device__ __forceinline__ float gate_next_t(float T, float alpha) {
   return __fmul_rn(T, 1.0f - alpha);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One 16-byte asynchronous copy from device to shared memory (cp.async,
+// bypassing L1), in this thread's current copy group.
+__device__ __forceinline__ void copy16(float4* dst, const float4* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// Close this thread's current copy group (an empty group is allowed).
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are still in flight
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // Stage rows [b0, b0 + n) of the sorted instance list into shared memory,

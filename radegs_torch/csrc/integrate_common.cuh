@@ -22,32 +22,23 @@ __constant__ const float OFF_Y[5] = {0.0f, -0.5f, -0.5f, 0.5f, 0.5f};
 // it (forward.cu:1063-1086): the power is <= 0, alpha >= 1/255 and
 // T (1 - alpha) stays >= 1e-4; then T becomes T (1 - alpha). A sample that
 // would underflow SKIPS the contributor and keeps walking (it does not end,
-// unlike the blend). `alpha`, `dx`, `dy` are set for the caller.
-__device__ __forceinline__ bool corner_step(const float* f, float sx, float sy, float& T,
-                                            float& alpha, float& dx, float& dy) {
+// unlike the blend). `dx`, `dy` are set for the caller, and `alpha` where it
+// returns true.
+// `skip` is the row's skip_below (radegs_torch/ops/integrate.py): below it
+// o expf(power) < 1/255 for certain, so the sample skips the contributor
+// without the exp, as the full test would.
+__device__ __forceinline__ bool corner_step(const float* f, float skip, float sx, float sy,
+                                            float& T, float& alpha, float& dx, float& dy) {
   dx = __fsub_rn(f[0], sx);
   dy = __fsub_rn(f[1], sy);
   const float power = gate_power(f, dx, dy);
-  if (power > 0.0f) return false;
+  if (power > 0.0f || power < skip) return false;
   alpha = gate_alpha(f[5], expf(power));
   if (alpha < ALPHA_EPS) return false;
   const float test = gate_next_t(T, alpha);
   if (test < T_EPS) return false;
   T = test;
   return true;
-}
-
-// Stage rows [b0, b0 + n) of the sorted instance list into shared memory,
-// gathered through gauss_id from a (P, NF * 4) feature table in float4
-// loads, by `nthreads` threads of which this is number `tid`.
-template <int NF>
-__device__ __forceinline__ void stage_rows_n(float4* rows, const float4* __restrict__ feat,
-                                             const int* __restrict__ gauss_id, int b0, int n,
-                                             int tid, int nthreads) {
-  for (int i = tid; i < n * NF; i += nthreads) {
-    const int r = i / NF;
-    rows[i] = feat[(size_t)gauss_id[b0 + r] * NF + (i - r * NF)];
-  }
 }
 
 }  // namespace radegs

@@ -26,6 +26,8 @@ No gradients flow through integration.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import NamedTuple
 
 import torch
@@ -52,9 +54,16 @@ MID_KEYS = ("mid_dc", "mid_p0", "mid_p1", "mid_x", "mid_y")
 # without its padding): 0:3 colour, 3 expected depth, 4 median depth, 5 max
 # depth, 6 alpha, 7 centre transmittance T0, 8:13 the median plane
 N_IMG = 13
-N_IMG_FEAT = 12  # xy 2, conic 3, opacity, rgb 3, ts, ray_plane 2
-N_PT_FEAT = 16  # xy 2, conic 3, opacity, ts, ray_plane 2, invraycov sym6, cond
-POINTS_PER_ITEM = 256  # points of one tile walked by one CUDA block
+# the feature rows, each padded to a whole number of float4 after its last
+# column, skip_below (``skip_below``), which only the kernels read
+N_IMG_FEAT = 16  # xy 2, conic 3, opacity, rgb 3, ts, ray_plane 2, skip_below
+N_PT_FEAT = 20  # xy 2, conic 3, opacity, ts, ray_plane 2, invraycov sym6, cond, skip_below
+# below ln(ALPHA_EPS / opacity) by this margin, a power surely gives alpha < 1/255
+SKIP_MARGIN = 1e-3
+POINTS_PER_ITEM = 32  # points of one tile walked by one warp (ITEM in the kernel)
+# the corner lattice of a tile: its pixels' corners at +-0.5 px are the
+# integer points (x0 + a, y0 + b), a, b in 0..16
+LATTICE = TILE + 1
 
 # kernel launches, counted by the wrappers where they launch a kernel and
 # nowhere else
@@ -94,27 +103,48 @@ def project_points(points3d, camera) -> PointProjection:
                            torch.stack([pi, pj], -1), tile)
 
 
+def skip_below(opacity):
+    """Per Gaussian of float32 ``opacity``, a power below which its alpha
+    min(0.99, o exp(power)) is surely under 1/255, so a sample there skips it
+    without the exp: ln(ALPHA_EPS / o) - SKIP_MARGIN in float64, rounded
+    down to float32; +inf where o <= 0 (alpha 0 everywhere). The margin is
+    ~1e4 times the error of a float32 expf and product, so the skip decision
+    is the one the full test would take."""
+    o = opacity.to(torch.float64)
+    eps = torch.tensor(ALPHA_EPS, dtype=torch.float32).item()  # the kernels' float32 1/255
+    p = torch.where(o > 0, torch.log(eps / o.clamp_min(1e-300)) - SKIP_MARGIN, torch.inf)
+    f = p.to(torch.float32)
+    return torch.where(f.double() > p, torch.nextafter(f, torch.full_like(f, -torch.inf)), f)
+
+
+def _padded(cols, n):
+    x = torch.cat(cols, dim=1).to(torch.float32)
+    return torch.nn.functional.pad(x, (0, n - x.shape[1])).contiguous()
+
+
 def image_features(prep: PreprocessOut):
-    """(P, 12) float32 rows of phase A: xy, conic, opacity (0 where culled),
-    rgb, ts, ray_plane — the first 12 columns of the blend's feature row."""
-    op = torch.where(prep.valid, prep.opacity.reshape(-1), 0.0)
-    return torch.cat([prep.xy, prep.conic, op[:, None], prep.rgb, prep.ts[:, None],
-                      prep.ray_plane], dim=1).to(torch.float32).contiguous()
+    """(P, N_IMG_FEAT) float32 rows of phase A: xy, conic, opacity (0 where
+    culled), rgb, ts, ray_plane (the first 12 columns of the blend's feature
+    row), then ``skip_below`` and zeros."""
+    op = torch.where(prep.valid, prep.opacity.reshape(-1), 0.0).to(torch.float32)
+    return _padded([prep.xy, prep.conic, op[:, None], prep.rgb, prep.ts[:, None],
+                    prep.ray_plane, skip_below(op)[:, None]], N_IMG_FEAT)
 
 
 def point_features(prep: PreprocessOut):
-    """(P, 16) float32 rows of phase B (pack_integrate_features of
+    """(P, N_PT_FEAT) float32 rows of phase B (pack_integrate_features of
     pallas_integrate.py:43-59): xy, conic, opacity (0 where culled), ts,
-    ray_plane, invraycov [00, 01, 02, 11, 12, 22], well_conditioned."""
+    ray_plane, invraycov [00, 01, 02, 11, 12, 22], well_conditioned, then
+    ``skip_below`` and zeros."""
     if prep.invraycov is None:
         raise ValueError("integrate needs preprocess with compute_invraycov=True")
-    op = torch.where(prep.valid, prep.opacity.reshape(-1), 0.0)
+    op = torch.where(prep.valid, prep.opacity.reshape(-1), 0.0).to(torch.float32)
     irc = prep.invraycov
     sym6 = torch.stack([irc[:, 0, 0], irc[:, 0, 1], irc[:, 0, 2], irc[:, 1, 1],
                         irc[:, 1, 2], irc[:, 2, 2]], dim=1)
-    return torch.cat([prep.xy, prep.conic, op[:, None], prep.ts[:, None], prep.ray_plane,
-                      sym6, prep.well_conditioned.to(torch.float32)[:, None]],
-                     dim=1).to(torch.float32).contiguous()
+    return _padded([prep.xy, prep.conic, op[:, None], prep.ts[:, None], prep.ray_plane,
+                    sym6, prep.well_conditioned.to(torch.float32)[:, None],
+                    skip_below(op)[:, None]], N_PT_FEAT)
 
 
 def _power(f, dx, dy):
@@ -144,6 +174,19 @@ def _corner_offsets(device):
             torch.tensor(OFFS_Y, device=device)[:, None, None])
 
 
+def lattice_corners():
+    """For each point (a, b) of a tile's corner lattice (index b LATTICE + a),
+    a (sample k, in-tile pixel) whose corner lies on it: k = 1 (-0.5, -0.5)
+    of pixel (a, b) where a, b < 16, else k = 2 (+0.5, -0.5) of (a - 1, b),
+    k = 3 (-0.5, +0.5) of (a, b - 1), k = 4 (+0.5, +0.5) of (a - 1, b - 1).
+    Returns (k, pixel) as two (LATTICE**2,) int64 tensors."""
+    idx = torch.arange(LATTICE * LATTICE)
+    a, b = idx % LATTICE, idx // LATTICE
+    right, below = a == TILE, b == TILE
+    k = 1 + right.to(torch.int64) + 2 * below.to(torch.int64)
+    return k, (b - below.to(torch.int64)) * TILE + (a - right.to(torch.int64))
+
+
 def integrate_image_torch(tile_gauss, feat, width: int, height: int,
                           count_work: bool = False):
     """Plain version of the phase-A kernel (integrate_image, integrate.py:95-195):
@@ -153,10 +196,16 @@ def integrate_image_torch(tile_gauss, feat, width: int, height: int,
     int32 index of the median contributor in its tile's run (-1 for none).
     The max depth starts at 0, as the XLA path does (integrate.py:118).
 
-    ``count_work`` adds a third return, the kernel's work on these inputs:
+    ``count_work`` adds a third return, the work on these inputs:
     ``n_pairs`` (instance, pixel) pairs walked, ``n_power`` samples whose
-    power test passes (the exp is taken), ``n_taken`` samples that take the
-    contributor, ``n_centre`` centre samples that do (the accumulation)."""
+    power test passes (a kernel without the skip test takes the exp there),
+    ``n_taken`` samples that take the contributor, ``n_centre`` centre
+    samples that do (the accumulation), ``n_alpha`` samples whose alpha
+    reaches 1/255 (the exp is needed), all over the 5 samples of each
+    pixel; ``n_lat_power``, ``n_lat_alpha`` and ``n_lat_taken`` the same
+    counts over each tile's distinct samples, which the kernel walks once
+    each: its 256 centres and the LATTICE x LATTICE corners
+    (``lattice_corners``)."""
     dev = feat.device
     T_tiles, K = tile_gauss.shape
     tiles_x, _ = tile_grid(width, height)
@@ -172,15 +221,22 @@ def integrate_image_torch(tile_gauss, feat, width: int, height: int,
     out = torch.zeros((N_IMG, T_tiles, TILE * TILE), dtype=f32, device=dev)
     med_pos = torch.full((T_tiles, TILE * TILE), -1, dtype=torch.int32, device=dev)
     work = {k: torch.zeros((), dtype=torch.int64, device=dev)
-            for k in ("n_pairs", "n_power", "n_taken", "n_centre")}
+            for k in ("n_pairs", "n_power", "n_taken", "n_centre", "n_alpha", "n_lat_power",
+                      "n_lat_alpha", "n_lat_taken")}
+    lat_k, lat_p = (x.to(dev) for x in lattice_corners())
     for k in range(K):
         ids = tile_gauss[:, k].to(torch.int64)
-        f = torch.where((ids >= 0)[:, None], feat[ids.clamp_min(0)], 0.0)[:, None, :]  # (T,1,12)
+        f = torch.where((ids >= 0)[:, None], feat[ids.clamp_min(0)], 0.0)[:, None, :]  # (T,1,16)
         alpha, passes, dx, dy = _corner_alpha(f[None], cx, cy)  # (5, T, 256)
         if count_work:
             live = (ids >= 0)[None, :, None]
             work["n_pairs"] += (ids >= 0).sum() * TILE * TILE
-            work["n_power"] += (live & (_power(f[None], dx, dy) <= 0.0)).sum()
+            pw = live & (_power(f[None], dx, dy) <= 0.0)
+            work["n_power"] += pw.sum()
+            work["n_lat_power"] += pw[0].sum() + pw[lat_k, :, lat_p].sum()
+            al = live & passes
+            work["n_alpha"] += al.sum()
+            work["n_lat_alpha"] += al[0].sum() + al[lat_k, :, lat_p].sum()
         T0_old = Ts[0]
         Ts, ok = _corner_step(Ts, alpha, passes)
         depth = f[None, ..., 9] + f[None, ..., 10] * dx + f[None, ..., 11] * dy
@@ -198,6 +254,7 @@ def integrate_image_torch(tile_gauss, feat, width: int, height: int,
         if count_work:
             work["n_taken"] += ok.sum()
             work["n_centre"] += ok[0].sum()
+            work["n_lat_taken"] += ok[0].sum() + ok[lat_k, :, lat_p].sum()
     out[7] = Ts[0]
     rows = out.transpose(0, 1).contiguous()
     return (rows, med_pos, work) if count_work else (rows, med_pos)
@@ -230,10 +287,23 @@ def _plain_tile_gauss(binning: TileBinning):
     return binning.tile_gauss
 
 
+@functools.cache
+def _entry(name: str):
+    """The C entry of an integrate kernel, built and resolved once."""
+    return build.entry(name, 7 if name == "integrate_image" else 10, 2)
+
+
+def _on(dev):
+    """A switch to ``dev`` only where it is not the current device."""
+    return (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+            else contextlib.nullcontext())
+
+
 def integrate_image_rows(binning: TileBinning, feat, width: int, height: int):
     """Phase A of every tile as (T, 13, 256) float32 rows and the (T, 256)
     int32 median index. On CUDA tensors it launches ``csrc/integrate_image.cu``
-    or raises; on CPU tensors it runs ``integrate_image_torch``."""
+    (the tiles heaviest first) or raises; on CPU tensors it runs
+    ``integrate_image_torch``."""
     if binning.tile_count.device.type == "cpu":
         return integrate_image_torch(_plain_tile_gauss(binning), feat, width, height)
     tiles_x, tiles_y = tile_grid(width, height)
@@ -243,11 +313,12 @@ def integrate_image_rows(binning: TileBinning, feat, width: int, height: int):
     build.check_tensor("features", feat, torch.float32, (feat.shape[0], N_IMG_FEAT), dev)
     rows = torch.empty((T, N_IMG, TILE * TILE), dtype=torch.float32, device=dev)
     med_pos = torch.empty((T, TILE * TILE), dtype=torch.int32, device=dev)
-    fn = build.entry("integrate_image", 6, 2)
-    with torch.cuda.device(dev):
-        rc = fn(feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
-                binning.tile_count.data_ptr(), rows.data_ptr(), med_pos.data_ptr(), T,
-                tiles_x, torch.cuda.current_stream(dev).cuda_stream)
+    tile_order = heaviest_first(binning.tile_count)
+    with _on(dev):
+        rc = _entry("integrate_image")(
+            feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
+            binning.tile_count.data_ptr(), tile_order.data_ptr(), rows.data_ptr(),
+            med_pos.data_ptr(), T, tiles_x, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"integrate_image kernel launch failed with CUDA error {rc}")
     LAUNCHES["integrate_image"] += 1
@@ -299,7 +370,8 @@ def integrate_points_torch(tile_gauss, feat, pts: PointProjection, mid, tiles_x:
 
     ``count_work`` adds a third return, the kernel's work over the valid
     points: ``n_pairs`` (instance, point) pairs walked, ``n_power`` samples
-    whose power test passes, ``n_used`` used pairs (the 3D alpha is taken),
+    whose power test passes, ``n_alpha`` samples whose alpha reaches 1/255
+    (the exp is needed), ``n_used`` used pairs (the 3D alpha is taken),
     ``n_inc`` pairs that add to the point's opacity."""
     dev = feat.device
     N = pts.xy.shape[0]
@@ -314,10 +386,10 @@ def integrate_points_torch(tile_gauss, feat, pts: PointProjection, mid, tiles_x:
     T_pt = torch.ones((N,), dtype=torch.float32, device=dev)
     a_int = torch.zeros((N,), dtype=torch.float32, device=dev)
     work = {k: torch.zeros((), dtype=torch.int64, device=dev)
-            for k in ("n_pairs", "n_power", "n_used", "n_inc")}
+            for k in ("n_pairs", "n_power", "n_alpha", "n_used", "n_inc")}
     for k in range(tile_gauss.shape[1]):
         ids = tile_gauss[tile, k].to(torch.int64)
-        f = torch.where((ids >= 0)[:, None], feat[ids.clamp_min(0)], 0.0)  # (N, 16)
+        f = torch.where((ids >= 0)[:, None], feat[ids.clamp_min(0)], 0.0)  # (N, 20)
         alpha, passes, dx, dy = _corner_alpha(f[None], cx, cy)
         Ts, ok = _corner_step(Ts, alpha, passes)
         apt = _point_alpha(f, px, py, depth)
@@ -329,30 +401,53 @@ def integrate_points_torch(tile_gauss, feat, pts: PointProjection, mid, tiles_x:
             live = (ids >= 0) & pts.valid
             work["n_pairs"] += live.sum()
             work["n_power"] += (live[None] & (_power(f[None], dx, dy) <= 0.0)).sum()
+            work["n_alpha"] += (live[None] & passes).sum()
             work["n_used"] += (live & used).sum()
             work["n_inc"] += (live & inc).sum()
     out = torch.where(pts.valid, a_int, 1.0), point_sdf_from_mid(pts, mid, tiles_x)
     return out + (work,) if count_work else out
 
 
-def point_work_items(pts: PointProjection, num_tiles: int):
-    """Valid points binned by tile (a stable sort of the tile id), each
-    tile's run cut into items of at most POINTS_PER_ITEM points. Returns
-    (order (Nv,) int32 original ids in sorted order, item_tile, item_start,
-    item_count (I,) int32)."""
+def heaviest_first(tile_count):
+    """The tiles in descending ``tile_count``, ties in tile order: (T,) int32."""
+    return torch.argsort(tile_count, descending=True, stable=True).to(torch.int32)
+
+
+def point_work_items(pts: PointProjection, tile_count):
+    """Every point sorted by (tile, pixel within the tile), stable in the
+    point id, the invalid ones last; each tile's run of valid points cut
+    into items of at most POINTS_PER_ITEM points (the lanes of one warp:
+    points of one pixel, or of neighbouring pixels, walk side by side). The
+    item list has a length fixed by the shapes alone, T + N //
+    POINTS_PER_ITEM + 1, so nothing here waits for the card; the entries it
+    does not need hold 0 points and come last. The items are listed
+    heaviest tile first (the binning's ``tile_count`` (T,), descending, ties
+    in tile order): an item's walk takes as long as its tile's run, so a
+    heavy tile started late sets the tail. Returns (order (N,) int32
+    original ids in sorted order, item_tile, item_start, item_count (I,)
+    int32)."""
     dev = pts.tile.device
-    vid = pts.valid.nonzero()[:, 0]
-    tiles_s, idx = torch.sort(pts.tile[vid], stable=True)
-    order = vid[idx].to(torch.int32)
-    counts = torch.bincount(tiles_s, minlength=num_tiles)
-    starts = torch.cumsum(counts, 0) - counts
-    n_items = (counts + POINTS_PER_ITEM - 1) // POINTS_PER_ITEM
-    item_tile = torch.repeat_interleave(torch.arange(num_tiles, device=dev), n_items)
-    first = torch.cumsum(n_items, 0) - n_items
-    k = torch.arange(item_tile.shape[0], device=dev) - first[item_tile]
-    item_start = starts[item_tile] + k * POINTS_PER_ITEM
-    item_count = torch.clamp_max(counts[item_tile] - k * POINTS_PER_ITEM, POINTS_PER_ITEM)
-    return (order, item_tile.to(torch.int32), item_start.to(torch.int32),
+    num_tiles = tile_count.numel()
+    N, per, px = pts.tile.shape[0], POINTS_PER_ITEM, TILE * TILE
+    within = (pts.pixel[:, 1] % TILE) * TILE + pts.pixel[:, 0] % TILE
+    key = torch.where(pts.valid, pts.tile * px + within, num_tiles * px)
+    key_s, order = torch.sort(key, stable=True)
+    # first sorted slot of each tile's run, and of the invalid points
+    bounds = torch.searchsorted(key_s, torch.arange(num_tiles + 1, device=dev) * px)
+    counts = bounds[1:] - bounds[:-1]
+    n_items = (counts + per - 1) // per
+    ends = torch.cumsum(n_items, 0)
+    j = torch.arange(num_tiles + N // per + 1, device=dev)
+    tile = torch.searchsorted(ends, j, right=True)  # num_tiles past the last item
+    used = tile < num_tiles
+    tile = torch.where(used, tile, 0)
+    k = j - (ends[tile] - n_items[tile])
+    item_start = bounds[tile] + k * per
+    item_count = torch.where(used, torch.clamp_max(counts[tile] - k * per, per), 0)
+    rows = torch.where(used, tile_count[tile].to(torch.int64), -1)
+    perm = torch.argsort(rows, descending=True, stable=True)
+    tile, item_start, item_count = tile[perm], item_start[perm], item_count[perm]
+    return (order.to(torch.int32), tile.to(torch.int32), item_start.to(torch.int32),
             item_count.to(torch.int32))
 
 
@@ -366,20 +461,18 @@ def integrate_points_alpha(binning: TileBinning, feat, pts: PointProjection, wid
     _check_binning(binning, T, dev)
     build.check_tensor("features", feat, torch.float32, (feat.shape[0], N_PT_FEAT), dev)
     N = pts.xy.shape[0]
-    order, item_tile, item_start, item_count = point_work_items(pts, T)
+    order, item_tile, item_start, item_count = point_work_items(pts, binning.tile_count)
     sel = order.to(torch.int64)
     pfeat = torch.stack([pts.xy[sel, 0], pts.xy[sel, 1], pts.depth[sel],
                          torch.zeros_like(pts.depth[sel])], dim=1).to(torch.float32).contiguous()
     out = torch.ones((N,), dtype=torch.float32, device=dev)
     n_items = item_tile.shape[0]
-    if n_items == 0:  # no valid point: nothing to launch
-        return out
-    fn = build.entry("integrate_points", 10, 1)
-    with torch.cuda.device(dev):
-        rc = fn(feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
-                binning.tile_count.data_ptr(), pfeat.data_ptr(), order.data_ptr(),
-                item_tile.data_ptr(), item_start.data_ptr(), item_count.data_ptr(),
-                out.data_ptr(), n_items, torch.cuda.current_stream(dev).cuda_stream)
+    with _on(dev):
+        rc = _entry("integrate_points")(
+            feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
+            binning.tile_count.data_ptr(), pfeat.data_ptr(), order.data_ptr(),
+            item_tile.data_ptr(), item_start.data_ptr(), item_count.data_ptr(),
+            out.data_ptr(), n_items, POINTS_PER_ITEM, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"integrate_points kernel launch failed with CUDA error {rc}")
     LAUNCHES["integrate_points"] += 1
