@@ -23,26 +23,31 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
    0.8, 1600x1200, max_per_tile 8192, ~8M instances per view), 2 views with
    the instance budget set from the measured demand. Launch counts are set
    to 0 before phase 3 and read after phase 4 (the serving path).
-5. Kernels alone. The forward kernel at the 100k view 0, timed in turns
-   (G=1, G=2, G=2, G=1; 20 launches each), its plain version once, held to
-   the bounds of phase 2, and the least time the card could take for its
-   work (bytes and FP32 operations counted from this view's inputs). The
-   backward against the exact reference renderer (``rasterize`` with the
-   kernels vs autograd through ``ops.reference.render_reference``, 256
-   Gaussians at 128x96: maps within ABS_TOL, gradients within 1e-4 x max
-   |reference|). Then the backward at three shapes: (a) the 100k view 0,
-   (b) the dense view 0 (early termination), (c) the training shape
-   (``create_from_points`` of the 100k scene: opacity 0.1, 3-NN scales,
-   view 0, no tile cut). At each, the checks of phase 2 and, alone in CUDA
-   graphs, the walk kernel (G=1, G=2; there and back), the segment sum,
-   the wrapper's sort and ``pack_aux``, the pair; the whole wrapper call;
-   the plain version once; the bound.
+5. Kernels alone. The backward against the exact reference renderer
+   (``rasterize`` with the kernels vs autograd through
+   ``ops.reference.render_reference``, 256 Gaussians at 128x96: maps within
+   ABS_TOL, gradients within 1e-4 x max |reference|). Then both blend
+   kernels at three shapes: (a) the 100k view 0, (b) the dense view 0
+   (early termination), (c) the training shape (``create_from_points`` of
+   the 100k scene: opacity 0.1, 3-NN scales, view 0, no tile cut). At each,
+   the forward's checks of phase 2, the forward kernel alone in CUDA graphs
+   (G=1, G=2 in turns), its whole wrapper call (G=1, G=2, G=2, G=1), its
+   plain version once, and the least time the card could take for its work
+   (bytes and FP32 operations counted from these inputs, each term at its
+   least multiplicity: those of dx alone per (instance, tile column), of dy
+   alone per (instance, tile row), the exp only where alpha reaches 1/255;
+   beside it the full-gate count, every term per pair); then the
+   backward's checks of phase 2 and, alone in CUDA graphs, the walk kernel
+   (G=1, G=2; there and back), the segment sum, the wrapper's sort and
+   ``pack_aux``, the pair; the whole wrapper call; the plain version once;
+   the bound.
 6. The training path at full width: ``create_from_points`` on the 100k
    scene's centres (jittered, seeded random colours; the KNN at P = 100k),
    the 8 views rendered from the scene as ground truth, then ``train`` for
    100 iterations (densify from 20 every 20 until 90, opacity reset at 80,
-   the depth-normal term from 10) at G=2; then 2 train steps on the dense
-   scene at G=2 and 2 at G=1. Launch counts are set to 0 before and read
+   the depth-normal term from 10) at the configured tiles per block
+   (``default_g``); then 2 train steps on the dense scene at G=2 and 2 at
+   G=1. Launch counts are set to 0 before and read
    after. Fails unless every loss and parameter is finite, the mean loss of
    iterations 51-60 is below that of 1-10, densify ran 3 times and the
    opacity reset once, Gaussians are left at the end, no instance overflow
@@ -130,6 +135,12 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
    kernel built with other ring depths (``WINDOW_VARIANTS``; also timed at
    the JAX shapes).
 
+``python3 chip_smoke.py --fwd [CSRC]`` runs only phase 2's forward checks
+and the forward at phase 5's three shapes, beside the forward kernel
+rebuilt from copies of its source with other constants (``FWD_VARIANTS``)
+and, when one is named, another checkout's forward kernel: every output
+equal to this tree's bitwise, each launch timed alone in a CUDA graph, this
+tree's and the other's at G=2 and G=1 in turns.
 ``python3 chip_smoke.py --bwd [CSRC]`` runs only phase 2, the reference
 check, the fault C1 witness (SSIM through plain ``F.conv2d`` with TF32
 allowed) and phase 5's backward shapes, beside the backward kernel
@@ -149,7 +160,7 @@ in a CUDA graph, this tree's and the other's in turns.
 torch.profiler pass over both scenes' serving and over 5 training
 iterations of the 100k scene (device time by operation, busy share).
 ``python3 chip_smoke.py --train100k`` runs only phase 3's 100k serving at
-G=2 and phase 6's 100 iterations of the 100k scene, ``python3
+the configured G and phase 6's 100 iterations of the 100k scene, ``python3
 chip_smoke.py --probes`` only phase 9 (on the dense scene it writes and
 bins as phase 4 does) and ``python3 chip_smoke.py --tetra`` only phase 7c:
 copied into a checkout of another commit and run there, each compares the
@@ -187,19 +198,30 @@ N_VIEWS, WARMUP = 8, 2
 # HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
-# FP32 operations per (instance, pixel) pair of blend_fwd.cu, an FMA counted
-# as 2: a walked pair 19 (2 deltas, 9 for the conic form, the power test,
-# ~4 for expf, the opacity product, the 0.99 clamp, the 1/255 test); a
-# blended pair 42 more (transmittance 3, weight 1, colour 6, weight sum 1,
-# t_ray 4 + 2, coord 12 + 6, normal 6, median test 1)
-OPS_WALKED, OPS_BLENDED = 19, 42
-# FP32 operations of blend_bwd.cu, counted the same way: a walked pair the
-# same 19 as the forward's gate; a blended pair 125 more (transmittance 3,
-# weight 1, t_ray 4, coord 12, dL/dw 21, prefix 2, suffix 2, dL/dalpha 3,
-# median routing 10, the clip gate 2, dL/dG 1, falloff products 2, e_x and
-# e_y 8, xy_abs 5, conic 9, opacity 1, rgb 3, camera_plane 6, ray_plane 2,
-# normal 3, and 25 adds into the pixel sums); the segment sum adds 25 per
-# instance
+# FP32 operations of blend_fwd.cu, an FMA counted as 2, each at the least
+# multiplicity the function allows: a term of dx alone once per (instance,
+# tile column), of dy alone once per (instance, tile row), and only what needs
+# both per (instance, pixel) pair. The gate: per column 4 (dx, a dx dx, b dx),
+# per row 3 (dy, c dy dy), per walked pair 5 (the sum, x -0.5, (b dx) dy, the
+# difference, the power test). Its alpha 7 more (~4 for expf, the opacity
+# product, the 0.99 clamp, the 1/255 test), which the least walk spends only
+# where alpha reaches 1/255 (n_alpha). A blended pair 34 more (transmittance
+# 3, weight 1, colour 6, weight sum 1, the dy half of t_ray 2 and its sum 2,
+# the dy halves of the coordinate 6 and its sums 6, normal 6, median test 1);
+# the dx halves of t_ray (2) and of the coordinate (6) once per (instance,
+# column) where a pixel blends. The full-gate count (the bound this script
+# reported before the least one) takes all of them per pair and the alpha on
+# every walked pair: (4 + 3 + 5 + 7) n_eval + (34 + 8) n_incl.
+OPS_GATE_COL, OPS_GATE_ROW, OPS_GATE_PAIR, OPS_ALPHA = 4, 3, 5, 7
+OPS_BLEND_PAIR, OPS_BLEND_COL = 34, 8
+OPS_GATE = OPS_GATE_COL + OPS_GATE_ROW + OPS_GATE_PAIR
+# FP32 operations of blend_bwd.cu, counted per pair: a walked pair the
+# same 19 as the forward's full gate (OPS_GATE + OPS_ALPHA); a blended pair
+# 125 more (transmittance 3, weight 1, t_ray 4, coord 12, dL/dw 21, prefix 2,
+# suffix 2, dL/dalpha 3, median routing 10, the clip gate 2, dL/dG 1, falloff
+# products 2, e_x and e_y 8, xy_abs 5, conic 9, opacity 1, rgb 3,
+# camera_plane 6, ray_plane 2, normal 3, and 25 adds into the pixel sums);
+# the segment sum adds 25 per instance
 OPS_BWD_WALKED, OPS_BWD_BLENDED, OPS_BWD_SEGMENT = 19, 125, 25
 # FP32 operations of the integrate kernels, counted the same way. Per walked
 # pair, the 5 sub-pixel samples' gate: 2 deltas, 9 for the conic form, the
@@ -256,6 +278,15 @@ INTEGRATE_VARIANTS = {
     "B5 RB=32": ("integrate_image", {"RB": 32}),
     "B5 STAGES=2": ("integrate_image", {"STAGES": 2}),
 }
+# forward kernels built from copies of csrc/blend_fwd.cu with other constants,
+# each checked bitwise against the tree and timed beside it at the three
+# view-0 shapes by --fwd: pixels per thread (with the register cap of
+# MIN_TILES tiles a SM), the register cap, rows a round, ring depth
+FWD_VARIANTS = {
+    "K=2": {"K": 2, "MIN_TILES": 6}, "K=1": {"K": 1, "MIN_TILES": 4},
+    "MIN_TILES=10": {"MIN_TILES": 10}, "RB=16": {"RB": 16},
+    "RB=64": {"RB": 64}, "STAGES=2": {"STAGES": 2}, "STAGES=4": {"STAGES": 4},
+}
 # copies of csrc/blend_bwd.cu with one piece taken out, timed beside it by --bwd (not
 # checked: their gradients are wrong by design): the warp reduction replaced
 # by a lane's own sum, and the walk cut to its gates (nothing blends)
@@ -293,6 +324,14 @@ LONG_RUN = ([1000, 300, 1100, 2100, 4000, 5], [0, 50, 300, 400, 600, 8187])
 # window kernels built beside the one in the source (S = 8), timed with it:
 # the other depths of its ring
 WINDOW_VARIANTS = {f"S={k}": {"STAGES": k} for k in (2, 3, 4, 6, 12, 16)}
+
+
+def default_g():
+    """The tiles a block of the blend kernels that training and the CLIs use
+    (``PipelineConfig.tiles_per_block``; ``render`` defaults to the same)."""
+    from radegs_torch.train.config import PipelineConfig
+
+    return PipelineConfig().tiles_per_block
 
 
 def check(cond, msg):
@@ -377,7 +416,7 @@ def compare(kernel, plain):
     and the med_t / med_coord error where med_pos agrees."""
     err = 0.0
     for k, v in plain.items():
-        if k in ("med_pos", "n_eval", "n_incl", "med_t", "med_coord"):
+        if k in ("med_pos", "med_t", "med_coord") or k.startswith("n_"):
             continue
         err = max(err, (kernel[k] - v).abs().max().item())
     same = kernel["med_pos"] == plain["med_pos"]
@@ -396,8 +435,9 @@ def same_bits(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def time_ms(fn, reps):
-    fn()
+def time_ms(fn, reps, warmup=True):
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -432,15 +472,26 @@ def graph_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def kernel_bound_ms(binning, inputs, work):
+def kernel_bound_ms(binning, inputs, work, least=True):
     """Least time for the blend's work on these inputs: every input read
-    once, every output written once, the walked and blended pairs' FP32
-    operations at peak."""
+    once, every output written once, and the FP32 operations at peak. With
+    ``least``, each term at its multiplicity in ``work`` (the gate's dx and
+    dy terms per walked (instance, column) and (instance, row), the rest per
+    walked pair, the alpha where it reaches 1/255, the blend's dx halves per
+    (instance, column) with a blended pixel); else the full-gate count, every
+    term per walked or blended pair and the alpha on every walked pair."""
     P = inputs[0].shape[0]
     T = binning.tile_count.shape[0]
     n_bytes = (P * 24 * 4 + binning.gauss_id.numel() * 4 + T * 8
                + T * 17 * 256 * 4 + T * 256 * 4)
-    ops = OPS_WALKED * int(work["n_eval"]) + OPS_BLENDED * int(work["n_incl"])
+    n = {k: int(v) for k, v in work.items() if k.startswith("n_")}
+    if least:
+        ops = (OPS_GATE_COL * n["n_col"] + OPS_GATE_ROW * n["n_row"]
+               + OPS_GATE_PAIR * n["n_eval"] + OPS_ALPHA * n["n_alpha"]
+               + OPS_BLEND_PAIR * n["n_incl"] + OPS_BLEND_COL * n["n_col_incl"])
+    else:
+        ops = ((OPS_GATE + OPS_ALPHA) * n["n_eval"]
+               + (OPS_BLEND_PAIR + OPS_BLEND_COL) * n["n_incl"])
     t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), n_bytes, ops
 
@@ -641,14 +692,134 @@ def other_wrapper(fn, binning, inputs, fwd, cot, W, H):
     from radegs_torch.ops import blend
 
     def swapped():
-        entry = blend.build.entry
-        blend.build.entry = lambda *a: fn
+        entry = blend._entry
+        blend._entry = lambda name: fn
         try:
             return blend.blend_backward(binning, inputs, fwd, cot, W, H, tiles_per_block=2)
         finally:
-            blend.build.entry = entry
+            blend._entry = entry
 
     return swapped
+
+
+def fwd_entry(lib):
+    """``radegs_blend_fwd`` of a built library with its ctypes signature
+    (another checkout's forward kernel has the same C entry)."""
+    import ctypes
+
+    fn = lib.radegs_blend_fwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fwd_libraries(variants, other=None):
+    """Forward kernels (C entry ``radegs_blend_fwd``) built from copies of
+    csrc/blend_fwd.cu with other constants (``variants``: {name: {constant:
+    value}}) and, when ``other`` names the csrc directory of another
+    checkout, from its blend_fwd.cu as ``other``; all at once
+    (``build.build_copies``, into build/chip_smoke/fwd/). Prints each build's
+    ptxas register and spill lines. Returns {name: C entry}."""
+    from radegs_torch.native import build
+
+    src = (build.CSRC / "blend_fwd.cu").read_text()
+    copies = {name: (build.with_constants(src, consts), build.CSRC)
+              for name, consts in variants.items()}
+    if other:
+        copies["other"] = open(os.path.join(other, "blend_fwd.cu")).read(), other
+    libs = {}
+    for name, (lib, out) in build.build_copies(
+            copies, os.path.join(ROOT, "build", "chip_smoke", "fwd")).items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas blend_fwd[{name}]: {line.strip()}")
+        libs[name] = fwd_entry(lib)
+    return libs
+
+
+class FwdCall:
+    """The inputs and outputs of one forward kernel launch, built once as
+    ``blend.blend_forward`` builds them, to launch any library's
+    ``radegs_blend_fwd`` (``fwd_entry``) alone."""
+
+    def __init__(self, binning, inputs, W, H):
+        from radegs_torch.ops import blend
+
+        self.feat, self.T, self.tiles_x = blend._kernel_inputs(binning, inputs, W, H, 2)
+        self.out = torch.empty((self.T, blend.N_OUT, 256), device=DEVICE)
+        self.med = torch.empty((self.T, 256), dtype=torch.int32, device=DEVICE)
+        self.binning = binning
+
+    def __call__(self, fn, g=2):
+        b = self.binning
+        rc = fn(self.feat.data_ptr(), b.gauss_id.data_ptr(), b.tile_start.data_ptr(),
+                b.tile_count.data_ptr(), self.out.data_ptr(), self.med.data_ptr(), self.T,
+                self.tiles_x, g, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"forward kernel launch failed with CUDA error {rc}")
+        return self.out, self.med
+
+
+def forward_shape(label, binning, inputs, work, plain_ms, libs, reps):
+    """One forward shape: the kernel through ``blend.blend_forward`` at G=1
+    and G=2 against the plain output ``work`` (abs ABS_TOL, med_pos flips <=
+    MED_POS_TOL), G=1 == G=2 and run == rerun bitwise, and every library of
+    ``libs`` (``fwd_libraries``) equal to this tree's output bitwise; then
+    each launch alone in CUDA graphs of ``reps`` (``in_turns``: this tree and
+    another checkout's at G=2 and G=1, medians of 4; the variants once), the
+    whole wrapper call by CUDA events around ``reps`` host-issued calls (G=1,
+    G=2, G=2, G=1), beside the plain version's ``plain_ms`` and both
+    bounds."""
+    from radegs_torch.native import build
+    from radegs_torch.ops import blend
+
+    W, H = WIDTH, HEIGHT
+    k1 = blend.blend_forward(binning, inputs, W, H, tiles_per_block=1)
+    k2 = blend.blend_forward(binning, inputs, W, H, tiles_per_block=2)
+    k2r = blend.blend_forward(binning, inputs, W, H, tiles_per_block=2)
+    torch.cuda.synchronize()
+    check(bit_identical(k1, k2), f"{label}: blend_fwd G=1 and G=2 are not bit-identical")
+    check(bit_identical(k2, k2r), f"{label}: blend_fwd differs between two runs")
+    err, flips, med_err = compare(k2, work)
+    check(err <= ABS_TOL and med_err <= ABS_TOL, f"{label}: kernel vs plain {err}, {med_err}")
+    check(flips <= MED_POS_TOL, f"{label}: med_pos flips {flips}")
+    call = FwdCall(binning, inputs, W, H)
+    tree = fwd_entry(build.load("blend_fwd"))
+    ref = [x.clone() for x in call(tree, 2)]
+    check(all(same_bits(a, b) for a, b in zip(ref, (blend.pack_raw(k2), k2["med_pos"]))),
+          f"{label}: a launch alone differs from the wrapper's output")
+    calls = {"G=1": lambda: call(tree, 1), "G=2": lambda: call(tree, 2)}
+    calls.update({name: (lambda e=e: call(e, 2)) for name, e in libs.items()})
+    if "other" in libs:
+        calls["other, G=1"] = lambda: call(libs["other"], 1)
+    same = {k: all(same_bits(a, b) for a, b in zip(c(), ref)) for k, c in calls.items()}
+    check(all(same.values()), f"{label}: forward outputs differ from this tree's: {same}")
+    alone = in_turns(calls, ["G=1", "G=2"] + (["other", "other, G=1"] if "other" in libs
+                                              else []), reps)
+    wrapper = {}
+    for g in (1, 2, 2, 1):
+        wrapper.setdefault(g, []).append(round(time_ms(
+            lambda g=g: blend.blend_forward(binning, inputs, W, H, tiles_per_block=g), reps), 4))
+    bound, bound_by, n_bytes, ops = kernel_bound_ms(binning, inputs, work)
+    full, _, _, ops_full = kernel_bound_ms(binning, inputs, work, least=False)
+    med = {k: float(np.median(v)) for k, v in alone.items()}
+    log(f"{label} forward ({binning.gauss_id.numel()} instances, max per tile "
+        f"{int(binning.max_tile_count)}; pairs walked {int(work['n_eval'])}, alpha >= 1/255 "
+        f"{int(work['n_alpha'])}, blended {int(work['n_incl'])}; (instance, row) / (instance, "
+        f"column) walked {int(work['n_row'])} / {int(work['n_col'])}, (instance, column) "
+        f"blended {int(work['n_col_incl'])}): vs plain max abs err "
+        f"{err:.3e}, med_pos flips {flips:.3e}, med err {med_err:.3e}; G1==G2, run==rerun "
+        f"and every library equal bitwise {same}; device ms alone (graphs of "
+        f"{reps}, in turns) {alone}; whole wrapper (host-issued, G1,G2,G2,G1) {wrapper}; plain "
+        f"{plain_ms:.3f}; least bound {bound:.4f} ms by {bound_by} ({n_bytes} bytes, {ops} FP32 "
+        f"operations): G=1 at {100 * bound / med['G=1']:.1f}%, G=2 at "
+        f"{100 * bound / med['G=2']:.1f}%; full-gate bound {full:.4f} ms ({ops_full} "
+        "operations)" + (f"; other at {100 * bound / med['other']:.1f}% of the least bound, "
+                         f"this tree {med['other'] / med['G=2']:.2f}x faster at G=2"
+                         if "other" in med else ""))
+    return dict(alone={g: med[f"G={g}"] for g in (1, 2)}, alone_runs=alone,
+                wrapper={g: float(np.median(v)) for g, v in wrapper.items()},
+                plain_ms=plain_ms, bound=bound, bound_by=bound_by, bound_full=full,
+                err=max(err, med_err))
 
 
 def view0_binning(state, cam, max_per_tile, capacity):
@@ -669,19 +840,20 @@ def view0_binning(state, cam, max_per_tile, capacity):
     return blend_inputs(prep), binning
 
 
-def backward_shapes(path, cap, dpath, dcap, cams, libs):
-    """The backward at its three shapes, each through ``backward_shape``
-    with seeded random cotangents and the plain forward's pair counts: (a)
-    the 100k view 0 (``max_per_tile`` 512, as served), (b) the dense view 0
-    (8192, early termination), (c) the training shape: ``create_from_points``
-    of the 100k scene's centres (opacity 0.1, 3-NN scales; ``training_scene``),
-    view 0, no tile cut. Returns {shape: results}."""
+def view0_shapes(path, cap, dpath, dcap, cams):
+    """The blend's three view-0 shapes, one at a time: (a) the 100k view 0
+    (``max_per_tile`` 512, as served), (b) the dense view 0 (8192, early
+    termination), (c) the training shape: ``create_from_points`` of the 100k
+    scene's centres (opacity 0.1, 3-NN scales; ``training_scene``), view 0,
+    no tile cut. Yields (shape, label, binning, inputs, work, plain_ms, reps):
+    ``work`` the plain forward's output with its pair counts, ``plain_ms``
+    the ms of one more plain call without the counts (CUDA events, as
+    ``time_ms``)."""
     from radegs_torch.models import gaussian_model as gm
     from radegs_torch.ops import blend
     from radegs_torch.ops.binning import MAX_PER_TILE_CAP, default_instance_budget
 
     dev = torch.device(DEVICE)
-    out = {}
     for shape in ("a", "b", "c"):
         if shape == "a":
             state = gm.update_3d_filter(
@@ -700,13 +872,32 @@ def backward_shapes(path, cap, dpath, dcap, cams, libs):
             del state
             work = blend.blend_forward_torch(binning.tile_gauss, inputs, WIDTH, HEIGHT,
                                              count_work=True)
+            plain_ms = time_ms(lambda: blend.blend_forward_torch(binning.tile_gauss, inputs,
+                                                                 WIDTH, HEIGHT), 1, warmup=False)
+        yield shape, label, binning, inputs, work, plain_ms, reps
+        del inputs, binning, work
+        torch.cuda.empty_cache()
+
+
+def backward_shapes(path, cap, dpath, dcap, cams, libs):
+    """The forward (``forward_shape``, this tree's kernel alone) and the
+    backward (``backward_shape``, with seeded random cotangents and the plain
+    forward's pair counts) at the three shapes of ``view0_shapes``. Returns
+    {shape: backward results, with the forward's under "fwd"}."""
+    from radegs_torch.ops import blend
+
+    out = {}
+    for shape, label, binning, inputs, work, plain_ms, reps in view0_shapes(
+            path, cap, dpath, dcap, cams):
+        with torch.no_grad():
+            fwd_res = forward_shape(f"phase 5 {label}", binning, inputs, work, plain_ms, {},
+                                    reps)
             fwd = blend.blend_forward(binning, inputs, WIDTH, HEIGHT)
             cot = random_cotangents(fwd, {"a": 12, "b": 14, "c": 15}[shape])
             out[shape] = backward_shape(f"phase 5 {label}", binning, inputs, fwd, cot, WIDTH,
                                         HEIGHT, work, libs, reps)
-            out[shape]["max_tile"] = int(binning.max_tile_count)
-        del inputs, binning, work, fwd, cot
-        torch.cuda.empty_cache()
+        out[shape].update(max_tile=int(binning.max_tile_count), fwd=fwd_res)
+        del fwd, cot
     return out
 
 
@@ -846,10 +1037,11 @@ def setup():
     return smi
 
 
-def parity_scene(W=256, H=256, target=(0, 0, 0)):
+def parity_scene(W=256, H=256, target=(0, 0, 0), backward=True):
     """Phase 2: kernel vs plain at G=1 and G=2 on bench.py's parity scene
     (and, off-centre at a size that is not a multiple of 16, with empty and
-    ragged tiles)."""
+    ragged tiles): the forward (also run == rerun bitwise), and the backward
+    unless ``backward`` is False."""
     from radegs_torch.core.camera import Camera
     from radegs_torch.core.projection import preprocess_gaussians
     from radegs_torch.ops import blend
@@ -875,6 +1067,8 @@ def parity_scene(W=256, H=256, target=(0, 0, 0)):
     k2 = blend.blend_forward(binning, inputs, W, H, tiles_per_block=2)
     torch.cuda.synchronize()
     check(bit_identical(k1, k2), "blend_fwd G=1 and G=2 are not bit-identical")
+    check(bit_identical(k2, blend.blend_forward(binning, inputs, W, H, tiles_per_block=2)),
+          "blend_fwd differs between two runs")
     err, flips, med_err = compare(k1, plain)
     log(f"phase 2 parity scene: P={P} {W}x{H} n_instances={int(binning.n_instances)} "
         f"(budget 32768, n_overflow {int(binning.n_overflow)}), empty tiles "
@@ -883,6 +1077,8 @@ def parity_scene(W=256, H=256, target=(0, 0, 0)):
         f"med_pos flips {flips:.3e}, med_t/med_coord err where med_pos agrees {med_err:.3e}")
     check(err <= ABS_TOL and med_err <= ABS_TOL, f"kernel vs plain error {err}, {med_err}")
     check(flips <= MED_POS_TOL, f"med_pos flips {flips}")
+    if not backward:
+        return max(err, med_err), None, None
     bwd_abs, bwd_rel, _ = check_backward(binning, inputs, k1, random_cotangents(k1, 11), W, H,
                                          f"phase 2 {W}x{H}")
     return max(err, med_err), bwd_abs, bwd_rel
@@ -947,12 +1143,12 @@ def report(label, rows, budget, launches, peak):
 
 def full_scale(workdir):
     """Phases 3 and 4 (the serving path at full width, then converged scale)
-    and phase 5 (the forward kernel alone at the 100k view 0; the backward
-    against the reference renderer, then at its three shapes)."""
+    and phase 5 (the backward against the reference renderer, then both
+    kernels at their three shapes)."""
     from radegs_torch.models import gaussian_model as gm
     from radegs_torch.ops import blend
     from radegs_torch.ops.binning import default_instance_budget, round_budget
-    from radegs_torch.ops.rasterize import bin_prep, blend_inputs
+    from radegs_torch.ops.rasterize import bin_prep
     from radegs_torch.renderer import prepare
 
     dev = torch.device(DEVICE)
@@ -995,10 +1191,11 @@ def full_scale(workdir):
             b = bin_prep(prepare(state, cam, 0.1), WIDTH, HEIGHT,
                          default_instance_budget(dcap), 8192, need_tile_gauss=False)
             need = max(need, int(b.n_instances))
-    before = blend.LAUNCHES["blend_fwd[G=2]"]
-    rowsd, dbudget = serve(state, dcams, 8192, round_budget(need), 2, "dense G=2")
-    results["dense"] = report("phase 4 dense 1.2M 1600x1200 G=2", rowsd, dbudget,
-                              blend.LAUNCHES["blend_fwd[G=2]"] - before,
+    g = default_g()
+    before = blend.LAUNCHES[f"blend_fwd[G={g}]"]
+    rowsd, dbudget = serve(state, dcams, 8192, round_budget(need), g, f"dense G={g}")
+    results["dense"] = report(f"phase 4 dense 1.2M 1600x1200 G={g}", rowsd, dbudget,
+                              blend.LAUNCHES[f"blend_fwd[G={g}]"] - before,
                               torch.cuda.max_memory_allocated())
     launches = dict(blend.LAUNCHES)  # the serving path ends here
     log(f"serving path kernel launches: {launches}")
@@ -1007,46 +1204,11 @@ def full_scale(workdir):
     del state
     torch.cuda.empty_cache()
 
-    # ---- phase 5: the 100k view 0 through the plain blend on the card, and
-    # the kernels timed alone at these shapes (launches here are not counted)
-    state = gm.update_3d_filter(gm.load_gaussian_ply(path, sh_degree=3, capacity=cap,
-                                                     device=dev), cams)
-    with torch.no_grad():
-        prep = prepare(state, cams[0], 0.1)
-        binning = bin_prep(prep, WIDTH, HEIGHT, budget, 512, need_tile_gauss=True)
-        inputs = blend_inputs(prep)
-        plain = blend.blend_forward_torch(binning.tile_gauss, inputs, WIDTH, HEIGHT,
-                                          count_work=True)
-        k2 = blend.blend_forward(binning, inputs, WIDTH, HEIGHT, tiles_per_block=2)
-        k1 = blend.blend_forward(binning, inputs, WIDTH, HEIGHT, tiles_per_block=1)
-        torch.cuda.synchronize()
-        check(bit_identical(k1, k2), "100k: G=1 and G=2 are not bit-identical")
-        err, flips, med_err = compare(k2, plain)
-        log(f"phase 5 plain blend on the card, view 0: max abs err {err:.3e}, med_pos flips "
-            f"{flips:.3e}, med err {med_err:.3e}; pairs walked {int(plain['n_eval'])}, "
-            f"blended {int(plain['n_incl'])}")
-        check(err <= ABS_TOL and med_err <= ABS_TOL, f"100k kernel vs plain {err}, {med_err}")
-        check(flips <= MED_POS_TOL, f"100k med_pos flips {flips}")
-        timing = {}
-        for rnd in range(2):  # turns: G=1, G=2, G=2, G=1
-            for g in ((1, 2) if rnd == 0 else (2, 1)):
-                ms = time_ms(lambda g=g: blend.blend_forward(binning, inputs, WIDTH, HEIGHT,
-                                                             tiles_per_block=g), 20)
-                timing.setdefault(g, []).append(ms)
-        plain_ms = time_ms(lambda: blend.blend_forward_torch(binning.tile_gauss, inputs,
-                                                             WIDTH, HEIGHT), 1)
-        bound, bound_by, n_bytes, ops = kernel_bound_ms(binning, inputs, plain)
-        log(f"phase 5 forward kernel alone at 100k view 0 (ms, turns G1,G2,G2,G1): G=1 "
-            f"{timing[1]}, G=2 {timing[2]}; plain {plain_ms:.3f}; bound {bound:.4f} ms by "
-            f"{bound_by} ({n_bytes} bytes, {ops} FP32 operations)")
-
-    # ---- the backward at its three shapes (launches here are not counted) ----
-    del state, prep, binning, inputs, plain, k1, k2
-    torch.cuda.empty_cache()
+    # ---- phase 5: the kernels alone at three shapes, the forward's and the
+    # backward's (launches here are not counted) ----
     ref_rel = reference_check()
-    results.update(launches=launches, timing=timing, plain_ms=plain_ms, bound=bound,
-                   bound_by=bound_by, err=max(err, med_err), path=path, dpath=dpath, cap=cap,
-                   dcap=dcap, cams=cams, budget=budget, dbudget=dbudget, ref_rel=ref_rel,
+    results.update(launches=launches, path=path, dpath=dpath, cap=cap, dcap=dcap, cams=cams,
+                   budget=budget, dbudget=dbudget, ref_rel=ref_rel,
                    bwd=backward_shapes(path, cap, dpath, dcap, cams, {}))
     return results
 
@@ -1113,7 +1275,7 @@ TRAIN_OCFG = dict(iterations=TRAIN_ITERS, densify_from_iter=20, densification_in
 
 def train_100k(path, cap, cams, budget):
     """Phase 6's first part: ``train`` for 100 iterations of the 100k scene
-    at 1600x1200 (G=2), checked and reported. Returns its numbers and the
+    at 1600x1200 (at ``default_g()``), checked and reported. Returns its numbers and the
     scene extent."""
     from radegs_torch.ops import blend
     from radegs_torch.train.config import ModelConfig, OptimizationConfig, PipelineConfig
@@ -1146,7 +1308,8 @@ def train_100k(path, cap, cams, budget):
     overflowed = [h["iteration"] for h in hist if h["n_overflow"] > 0]
     med, counts = stage_medians(step_events)
     host_ms = 1e3 * float(np.median(np.diff(host)))
-    log(f"phase 6 training 100k 1600x1200 G=2, {TRAIN_ITERS} iterations in {wall:.3f} s: "
+    log(f"phase 6 training 100k 1600x1200 G={default_g()}, {TRAIN_ITERS} iterations in "
+        f"{wall:.3f} s: "
         f"median ms per iteration {host_ms:.3f} (host clock); CUDA-event medians ms: "
         + ", ".join(f"{k} {v:.3f} (x{counts[k]})" for k, v in med.items())
         + f"; n_active {n0} -> {int(ts.gaussians.n_active())}, capacity {c0} -> "
@@ -1168,8 +1331,10 @@ def train_100k(path, cap, cams, budget):
     check(hist[-1]["n_active"] > 0, "training ended with no Gaussian")
     check(all(h["n_overflow"] == 0 for h in hist[-20:]),
           f"instance overflow after the autotune settled: {overflowed}")
-    check(launches_100["blend_bwd[G=2]"] == TRAIN_ITERS,
-          f"blend_bwd[G=2] launched {launches_100['blend_bwd[G=2]']}x in {TRAIN_ITERS} steps")
+    g = default_g()
+    check(launches_100[f"blend_bwd[G={g}]"] == TRAIN_ITERS,
+          f"blend_bwd[G={g}] launched {launches_100[f'blend_bwd[G={g}]']}x in {TRAIN_ITERS} "
+          "steps")
     results = dict(train_med=med, train_host_ms=host_ms, train_peak=peak, loss_first=first,
                    loss_mid=mid)
     del ts, g0, scene, hist
@@ -2623,8 +2788,8 @@ def profile_training(workdir):
 
 
 def train_ab(workdir):
-    """``--train100k``: phase 3's 100k serving at G=2 and phase 6's 100
-    iterations of the 100k scene, nothing else."""
+    """``--train100k``: phase 3's 100k serving at ``default_g()`` and phase
+    6's 100 iterations of the 100k scene, nothing else."""
     from radegs_torch.models import gaussian_model as gm
     from radegs_torch.ops import blend
     from radegs_torch.ops.binning import default_instance_budget
@@ -2636,9 +2801,10 @@ def train_ab(workdir):
     blend.reset_launches()
     state = gm.update_3d_filter(
         gm.load_gaussian_ply(path, sh_degree=3, capacity=cap, device=dev), cams)
-    rows, budget = serve(state, cams, 512, default_instance_budget(cap), 2, "100k G=2",
+    g = default_g()
+    rows, budget = serve(state, cams, 512, default_instance_budget(cap), g, f"100k G={g}",
                          warmup=WARMUP)
-    report("phase 3 100k 1600x1200 G=2", rows, budget, blend.LAUNCHES["blend_fwd[G=2]"],
+    report(f"phase 3 100k 1600x1200 G={g}", rows, budget, blend.LAUNCHES[f"blend_fwd[G={g}]"],
            torch.cuda.max_memory_allocated())
     del state
     torch.cuda.empty_cache()
@@ -2683,6 +2849,23 @@ def backward_only(workdir, other):
     log(f"backward vs plain, max rel err over phase 2: {max(p[2] for p in parity):.3e}")
 
 
+def forward_only(workdir, other):
+    """``--fwd [CSRC]``: phase 2's forward checks, then the forward at the
+    three view-0 shapes (``forward_shape``) beside FWD_VARIANTS and, given
+    the csrc directory of another checkout, its forward kernel (its own C
+    entry, fed the same binning)."""
+    parity = [parity_scene(backward=False), parity_scene(250, 190, (1.6, 0, 0), backward=False)]
+    libs = fwd_libraries(FWD_VARIANTS, other)
+    cams = orbit_cameras(N_VIEWS, torch.device(DEVICE))
+    path, dpath = os.path.join(workdir, "scene100k.ply"), os.path.join(workdir, "dense.ply")
+    cap, dcap = scene_ply(path, "100k"), scene_ply(dpath, "dense")
+    for _, label, binning, inputs, work, plain_ms, reps in view0_shapes(
+            path, cap, dpath, dcap, cams):
+        with torch.no_grad():
+            forward_shape(f"--fwd {label}", binning, inputs, work, plain_ms, libs, reps)
+    log(f"forward vs plain, max abs err over phase 2: {max(p[0] for p in parity):.3e}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -2710,6 +2893,11 @@ def main():
             backward_only(tmp, sys.argv[2] if len(sys.argv) > 2 else None)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return
+    if sys.argv[1:2] == ["--fwd"]:
+        with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+            forward_only(tmp, sys.argv[2] if len(sys.argv) > 2 else None)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return
     if sys.argv[1:2] == ["--integrate"]:
         with tempfile.TemporaryDirectory(dir=workdir) as tmp:
             integrate_only(tmp, sys.argv[2] if len(sys.argv) > 2 else None)
@@ -2735,15 +2923,18 @@ def main():
         entry_points(tmp, tr)
         probes = bisect_probes(res)
     kernels = []
+    fwd = res["bwd"]["a"]["fwd"]
     for g, replaces in ((1, "radegs_tpu/ops/pallas_blend.py:263"),
                         (2, "radegs_tpu/ops/pallas_blend_mt.py:73")):
-        kernels.append({
+        kernels.append({  # at the 100k view 0: ms per wrapper call, alone_ms per shape
             "name": f"blend_fwd[G={g}]", "route": "cuda",
             "source": "radegs_torch/csrc/blend_fwd.cu", "replaces": replaces,
             "launches": res["launches"][f"blend_fwd[G={g}]"],
-            "max_abs_err": max(err2, res["err"]),
-            "ms": float(np.median(res["timing"][g])), "plain_ms": res["plain_ms"],
-            "bound_ms": res["bound"], "bound_by": res["bound_by"], "library_ms": None,
+            "max_abs_err": max([err2] + [v["fwd"]["err"] for v in res["bwd"].values()]),
+            "ms": fwd["wrapper"][g],
+            "alone_ms": {k: v["fwd"]["alone"][g] for k, v in res["bwd"].items()},
+            "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound"], "bound_by": fwd["bound_by"],
+            "bound_full_gate_ms": fwd["bound_full"], "library_ms": None,
         })
     bwd = res["bwd"]
     for g, replaces in ((1, "radegs_tpu/ops/pallas_blend.py:600"),

@@ -110,29 +110,6 @@ constexpr int OFF_MASK = OFF_PART + 2 * RB * NW * N_GRAD;
 constexpr int TILE_FLOATS = (OFF_MASK + 2 * NW + 3) / 4 * 4;
 constexpr int TILE_BYTES = TILE_FLOATS * 4;
 
-// Barrier ID (1 + the tile's index in its block; 0 is __syncthreads') of
-// one tile's NT threads; returns whether `pred` holds on every one of them.
-// The ID is an immediate, so ptxas reserves only the barriers in use.
-template <int ID>
-__device__ __forceinline__ bool bar_and(bool pred) {
-  uint32_t all;
-  asm volatile(
-      "{\n\t.reg .pred p, q;\n\t"
-      "setp.ne.u32 p, %1, 0;\n\t"
-      "bar.red.and.pred q, %2, %3, p;\n\t"
-      "selp.u32 %0, 1, 0, q;\n\t}"
-      : "=r"(all)
-      : "r"(static_cast<uint32_t>(pred)), "n"(ID), "n"(NT)
-      : "memory");
-  return all != 0;
-}
-
-template <int G>
-__device__ __forceinline__ bool tile_sync_and(int j, bool pred) {
-  static_assert(G == 1 || G == 2, "one or two tiles per block");
-  return G == 1 || j == 0 ? bar_and<1>(pred) : bar_and<2>(pred);
-}
-
 // One step of the warp reduce-scatter: a lane keeps the half of its S values
 // selected by bit S of its lane index and adds its partner's copy of it.
 template <int S>
@@ -258,7 +235,7 @@ blend_bwd_kernel(const float4* __restrict__ feat, const int* __restrict__ gauss_
   for (;; ++r) {
     copy_wait<STAGES - 2>();  // this thread's copies of round r have landed
     // every thread's copies of round r, and the partials of round r - 1
-    const bool all_done = tile_sync_and<G>(j, done == DONE_ALL);
+    const bool all_done = tile_sync_and<G, NT>(j, done == DONE_ALL);
     if (r > 0) {
       // the rows of round r - 1: the tile's warp partials in warp order
       const int b0 = start + (r - 1) * RB;

@@ -3,8 +3,8 @@
 // arithmetic that decides whether a contributor is skipped, blended, or ends
 // its pixel. Both kernels take these decisions through the functions below,
 // so the backward re-walk includes exactly the contributors the forward did.
-// Also the cp.async helpers of the kernels that gather rows into a ring
-// (blend_bwd.cu and the integrate kernels).
+// Also the cp.async helpers of the kernels that gather rows into a ring, and
+// the per-tile barrier of the blend kernels that run G tiles a block.
 
 #pragma once
 
@@ -72,16 +72,28 @@ __device__ __forceinline__ void copy_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// Stage rows [b0, b0 + n) of the sorted instance list into shared memory,
-// gathered through gauss_id from the (P, 24) feature table in float4 loads,
-// by `nthreads` threads of which this is number `tid`.
-__device__ __forceinline__ void stage_rows(float4* rows, const float4* __restrict__ feat,
-                                           const int* __restrict__ gauss_id, int b0, int n,
-                                           int tid, int nthreads) {
-  for (int i = tid; i < n * NF4; i += nthreads) {
-    const int r = i / NF4;
-    rows[i] = feat[(size_t)gauss_id[b0 + r] * NF4 + (i - r * NF4)];
-  }
+// Barrier ID (1 + the tile's index in its block; 0 is __syncthreads') of
+// one tile's N threads; returns whether `pred` holds on every one of them.
+// The ID is an immediate, so ptxas reserves only the barriers in use.
+template <int ID, int N>
+__device__ __forceinline__ bool bar_and(bool pred) {
+  uint32_t all;
+  asm volatile(
+      "{\n\t.reg .pred p, q;\n\t"
+      "setp.ne.u32 p, %1, 0;\n\t"
+      "bar.red.and.pred q, %2, %3, p;\n\t"
+      "selp.u32 %0, 1, 0, q;\n\t}"
+      : "=r"(all)
+      : "r"(static_cast<uint32_t>(pred)), "n"(ID), "n"(N)
+      : "memory");
+  return all != 0;
+}
+
+// The barrier of tile j (0 or 1) of a block of G tiles of N threads each.
+template <int G, int N>
+__device__ __forceinline__ bool tile_sync_and(int j, bool pred) {
+  static_assert(G == 1 || G == 2, "one or two tiles per block");
+  return G == 1 || j == 0 ? bar_and<1, N>(pred) : bar_and<2, N>(pred);
 }
 
 }  // namespace radegs

@@ -28,12 +28,12 @@ tensors off the current one: the host call costs more than these kernels.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import torch
 
 from radegs_torch.native import build
+from radegs_torch.utils.device import on_device
 
 CH = 128
 ROWS = 25
@@ -121,10 +121,7 @@ def _run(probe: str, start, count, feat):
         raise ValueError(f"feat must have a positive multiple of {CH} columns, got {B} "
                          "(pad_columns pads it)")
     out = torch.empty((T, *OUT_SHAPE), dtype=torch.float32, device=dev)
-    # the device switch only where the tensors are not on the current device
-    switch = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
-              else contextlib.nullcontext())
-    with switch:
+    with on_device(dev):
         rc = _entry()(start.data_ptr(), count.data_ptr(), feat.data_ptr(), out.data_ptr(),
                       PROBES.index(probe), T, B, torch.cuda.current_stream().cuda_stream)
     if rc != 0:

@@ -31,12 +31,14 @@ channel ``xy_abs`` = sum |e_x| W/2 + |e_y| H/2 (rasterize.py:344-347), as
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from radegs_torch.native import build
 from radegs_torch.ops.binning import TILE, TileBinning, tile_grid
+from radegs_torch.utils.device import on_device
 
 ALPHA_EPS = 1.0 / 255.0
 T_EPS = 1e-4
@@ -130,8 +132,12 @@ def blend_forward_torch(tile_gauss, inputs, width: int, height: int,
     id list (-1 padded) one contributor at a time, all pixels at once.
 
     ``count_work`` adds ``n_eval`` (pairs walked: each pixel's contributors up
-    to and including the one that ends it) and ``n_incl`` (pairs blended) —
-    the work the kernel's operation count is taken from."""
+    to and including the one that ends it), ``n_alpha`` (pairs walked whose
+    alpha reaches 1/255: the only ones that need the exp), ``n_incl`` (pairs
+    blended), ``n_row`` / ``n_col`` ((contributor, tile row) / (contributor,
+    tile column) pairs with a walked pixel: the terms of one dy or one dx)
+    and ``n_col_incl`` ((contributor, tile column) pairs with a blended
+    pixel) — the work the kernel's operation count is taken from."""
     _, _, _, rgb, _, _, _, normal, _ = inputs
     dev = rgb.device
     T_tiles, K = tile_gauss.shape
@@ -149,7 +155,11 @@ def blend_forward_torch(tile_gauss, inputs, width: int, height: int,
     med_x = torch.zeros_like(acc_c)
     med_pos = torch.full(t_cur.shape, -1, dtype=torch.int32, device=dev)
     n_eval = torch.zeros((), dtype=torch.int64, device=dev)
+    n_alpha = torch.zeros((), dtype=torch.int64, device=dev)
     n_incl = torch.zeros((), dtype=torch.int64, device=dev)
+    n_row = torch.zeros((), dtype=torch.int64, device=dev)
+    n_col = torch.zeros((), dtype=torch.int64, device=dev)
+    n_col_incl = torch.zeros((), dtype=torch.int64, device=dev)
 
     for k in range(K):
         s = _walk_step(tile_gauss[:, k], done, t_cur, inputs, pix_x, pix_y)
@@ -167,7 +177,12 @@ def blend_forward_torch(tile_gauss, inputs, width: int, height: int,
         done = done | s.term
         if count_work:
             n_eval += s.live.sum()
+            n_alpha += (s.inc | s.term).sum()
             n_incl += s.inc.sum()
+            live = s.live.view(T_tiles, TILE, TILE)  # [tile, pixel row, pixel column]
+            n_row += live.any(2).sum()
+            n_col += live.any(1).sum()
+            n_col_incl += s.inc.view(T_tiles, TILE, TILE).any(1).sum()
 
     out = {
         "color_raw": acc_c,
@@ -181,7 +196,8 @@ def blend_forward_torch(tile_gauss, inputs, width: int, height: int,
         "med_pos": med_pos,
     }
     if count_work:
-        out.update(n_eval=n_eval, n_incl=n_incl)
+        out.update(n_eval=n_eval, n_alpha=n_alpha, n_incl=n_incl, n_row=n_row, n_col=n_col,
+                   n_col_incl=n_col_incl)
     return out
 
 
@@ -336,6 +352,21 @@ def _plain_tile_gauss(binning: TileBinning):
     return binning.tile_gauss
 
 
+@functools.lru_cache(maxsize=4)
+def _resolved(name: str, entry):
+    return entry(name, *{"blend_fwd": (6, 3), "blend_bwd": (10, 7)}[name])
+
+
+def _entry(name: str):
+    """The C entry of a blend kernel, built and resolved once per
+    ``build.entry``. Unlike the ``_entry`` of ``ops/integrate.py`` and
+    ``ops/bisect.py`` (one cache keyed by name), the cache is also keyed by
+    ``build.entry`` itself, because ``tests/test_torch_blend_kernel.py``
+    swaps that function for one returning a copy of the backward kernel and
+    must launch the copy; four entries hold both kernels and one swap."""
+    return _resolved(name, build.entry)
+
+
 def blend_forward_packed(binning: TileBinning, inputs, width: int, height: int,
                          tiles_per_block: int = 2):
     """Forward blend of every tile as the packed (T, 17, 256) float32 output
@@ -349,12 +380,11 @@ def blend_forward_packed(binning: TileBinning, inputs, width: int, height: int,
     dev = feat.device
     out = torch.empty((T, N_OUT, TILE * TILE), dtype=torch.float32, device=dev)
     med_pos = torch.empty((T, TILE * TILE), dtype=torch.int32, device=dev)
-    fn = build.entry("blend_fwd", 6, 3)
-    with torch.cuda.device(dev):
-        rc = fn(feat.data_ptr(), binning.gauss_id.data_ptr(),
-                binning.tile_start.data_ptr(), binning.tile_count.data_ptr(),
-                out.data_ptr(), med_pos.data_ptr(), T, tiles_x, tiles_per_block,
-                torch.cuda.current_stream(dev).cuda_stream)
+    with on_device(dev):
+        rc = _entry("blend_fwd")(
+            feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
+            binning.tile_count.data_ptr(), out.data_ptr(), med_pos.data_ptr(), T, tiles_x,
+            tiles_per_block, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"blend_fwd kernel launch failed with CUDA error {rc}")
     LAUNCHES[f"blend_fwd[G={tiles_per_block}]"] += 1
@@ -419,13 +449,13 @@ def blend_backward(binning: TileBinning, inputs, fwd_out, cot, width: int, heigh
     rank, seg = instance_segments(binning.gauss_id, P)
     inst_rows = torch.empty((N, INST_ROW), dtype=torch.float32, device=dev)
     grad = torch.empty((P, N_GRAD), dtype=torch.float32, device=dev)
-    fn = build.entry("blend_bwd", 10, 7)
-    with torch.cuda.device(dev):
-        rc = fn(feat.data_ptr(), binning.gauss_id.data_ptr(),
-                binning.tile_start.data_ptr(), binning.tile_count.data_ptr(),
-                aux.data_ptr(), med_pos.data_ptr(), rank.data_ptr(), seg.data_ptr(),
-                inst_rows.data_ptr(), grad.data_ptr(), T, tiles_x, N, P, width, height,
-                tiles_per_block, torch.cuda.current_stream(dev).cuda_stream)
+    with on_device(dev):
+        rc = _entry("blend_bwd")(
+            feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
+            binning.tile_count.data_ptr(), aux.data_ptr(), med_pos.data_ptr(),
+            rank.data_ptr(), seg.data_ptr(), inst_rows.data_ptr(), grad.data_ptr(), T,
+            tiles_x, N, P, width, height, tiles_per_block,
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"blend_bwd kernel launch failed with CUDA error {rc}")
     LAUNCHES[f"blend_bwd[G={tiles_per_block}]"] += 1

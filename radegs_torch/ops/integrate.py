@@ -26,7 +26,6 @@ No gradients flow through integration.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import NamedTuple
 
@@ -42,6 +41,7 @@ from radegs_torch.ops.binning import (
     tile_grid,
 )
 from radegs_torch.ops.rasterize import untile
+from radegs_torch.utils.device import on_device
 
 ALPHA_EPS = 1.0 / 255.0
 T_EPS = 1e-4
@@ -293,12 +293,6 @@ def _entry(name: str):
     return build.entry(name, 7 if name == "integrate_image" else 10, 2)
 
 
-def _on(dev):
-    """A switch to ``dev`` only where it is not the current device."""
-    return (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
-            else contextlib.nullcontext())
-
-
 def integrate_image_rows(binning: TileBinning, feat, width: int, height: int):
     """Phase A of every tile as (T, 13, 256) float32 rows and the (T, 256)
     int32 median index. On CUDA tensors it launches ``csrc/integrate_image.cu``
@@ -314,7 +308,7 @@ def integrate_image_rows(binning: TileBinning, feat, width: int, height: int):
     rows = torch.empty((T, N_IMG, TILE * TILE), dtype=torch.float32, device=dev)
     med_pos = torch.empty((T, TILE * TILE), dtype=torch.int32, device=dev)
     tile_order = heaviest_first(binning.tile_count)
-    with _on(dev):
+    with on_device(dev):
         rc = _entry("integrate_image")(
             feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
             binning.tile_count.data_ptr(), tile_order.data_ptr(), rows.data_ptr(),
@@ -467,7 +461,7 @@ def integrate_points_alpha(binning: TileBinning, feat, pts: PointProjection, wid
                          torch.zeros_like(pts.depth[sel])], dim=1).to(torch.float32).contiguous()
     out = torch.ones((N,), dtype=torch.float32, device=dev)
     n_items = item_tile.shape[0]
-    with _on(dev):
+    with on_device(dev):
         rc = _entry("integrate_points")(
             feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
             binning.tile_count.data_ptr(), pfeat.data_ptr(), order.data_ptr(),

@@ -7,6 +7,8 @@ when there is none. The CPU is used only when the caller asks for it
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -26,3 +28,10 @@ def add_device_arg(parser):
     ``cuda``, which raises without a card)."""
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="where to run (cpu only on request; cuda needs a card)")
+
+
+def on_device(dev: torch.device):
+    """A switch to CUDA device ``dev`` only where it is not the current
+    device: the kernels' wrappers launch on the current stream of ``dev``."""
+    return (torch.cuda.device(dev) if dev.index is not None
+            and dev.index != torch.cuda.current_device() else contextlib.nullcontext())
