@@ -125,9 +125,11 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
    on the last column), on steps that leave the matrix (NaN on the same
    steps) and on the long-run set (steps of 0, 1, 3, 4, 5 and 64 windows in
    25 x 8192: the ring's refills and phase flips), bit-identical run to run
-   (a sha256 of the outputs printed, to compare two checkouts), timed over
-   100 launches in a CUDA graph (the kernel alone) against its plain
-   version, a library call (also in a graph) and its bound, and per wrapper
+   (a sha256 of the outputs printed, to compare two checkouts), timed alone
+   in CUDA graphs of 100 launches in turns with the launch-and-store floor
+   (``floor_ms``: ``fill_`` of the (T, 8, 256) output, the least a launch
+   that writes it takes), against its plain version, a library call (also
+   in a graph) and its bound, and per wrapper
    call from the host (``call_ms``, with the host cost of each piece of a
    wrapper call); then ``window`` at the run layout of the dense view 0
    against its bytes bound, beside the bytes it asks for, the same steps
@@ -159,12 +161,18 @@ in a CUDA graph, this tree's and the other's in turns.
 ``python3 chip_smoke.py --profile`` instead runs the setup and a
 torch.profiler pass over both scenes' serving and over 5 training
 iterations of the 100k scene (device time by operation, busy share).
+``python3 chip_smoke.py --probes [CSRC]`` runs only phase 9 (on the dense
+scene it writes and bins as phase 4 does) and, when one is named, beside
+another checkout's ``bisect_probes.cu`` (built with ``build.build_copies``;
+its C entry takes the same arguments): on every set of phase 9 its
+``window`` and ``tri_mm`` must give this tree's bits and its ``aligned``
+and ``mm_highest`` stay within ``BISECT_REL_TOL`` of the plain version;
+each of its probes joins the turns of this tree's (this tree, the floor,
+the other, then back, three times).
 ``python3 chip_smoke.py --train100k`` runs only phase 3's 100k serving at
-the configured G and phase 6's 100 iterations of the 100k scene, ``python3
-chip_smoke.py --probes`` only phase 9 (on the dense scene it writes and
-bins as phase 4 does) and ``python3 chip_smoke.py --tetra`` only phase 7c:
-copied into a checkout of another commit and run there, each compares the
-two in one call.
+the configured G and phase 6's 100 iterations of the 100k scene and
+``python3 chip_smoke.py --tetra`` only phase 7c: copied into a checkout of
+another commit and run there, each compares the two in one call.
 
 Every phase that fails raises, and the script exits non-zero without the
 result lines. The last three lines are the card's name and power limit, a
@@ -174,6 +182,7 @@ JSON object with a ``kernels`` list, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -2476,36 +2485,45 @@ def probe_held(probe, out, plain, start, count, feat):
     return float(diff.max()), float(share.max())
 
 
-def window_variants(variants):
-    """The window kernel built from copies of csrc/bisect_probes.cu, one per
-    variant ({constant: value} replacing the source's ``constexpr ...
-    <constant> = ...;``), compiled with build.py's flags all at once into
-    build/chip_smoke/ and bound with ctypes. Returns {name: function
-    (start, count, feat) -> out}, or {} for a source without the ring."""
+def probe_copies(other=None):
+    """The probes' C entry built from copies of csrc/bisect_probes.cu, one
+    per variant of WINDOW_VARIANTS ({constant: value} replacing the source's
+    ``constexpr ... <constant> = ...;``) and, when ``other`` names the csrc
+    directory of another checkout, from its bisect_probes.cu as "other"
+    (its C entry takes the same arguments); compiled with build.py's flags all
+    at once into build/chip_smoke/probes/ and bound with ctypes, the
+    other's ptxas register and spill lines logged. Returns {label: function
+    (probe, start, count, feat) -> out}."""
     import ctypes
 
     from radegs_torch.native import build
+    from radegs_torch.ops import bisect
 
     src = (build.CSRC / "bisect_probes.cu").read_text()
-    if "constexpr int STAGES" not in src:
-        return {}
     copies = {name: (build.with_constants(src, consts), build.CSRC)
-              for name, consts in variants.items()}
+              for name, consts in WINDOW_VARIANTS.items()}
+    if other:
+        copies["other"] = open(os.path.join(other, "bisect_probes.cu")).read(), other
     kernels = {}
-    for name, (lib, _) in build.build_copies(
-            copies, os.path.join(ROOT, "build", "chip_smoke", "window")).items():
+    for name, (lib, text) in build.build_copies(
+            copies, os.path.join(ROOT, "build", "chip_smoke", "probes")).items():
+        if name == "other":
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas bisect_probes[{name}]: {line.strip()}")
         fn = lib.radegs_bisect_probes
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
-        def window(start, count, feat, fn=fn, name=name):
+        def run(probe, start, count, feat, fn=fn, name=name):
             out = torch.empty((start.shape[0], 8, 256), device=feat.device)
-            rc = fn(start.data_ptr(), count.data_ptr(), feat.data_ptr(), out.data_ptr(), 1,
-                    start.shape[0], feat.shape[1], torch.cuda.current_stream().cuda_stream)
-            check(rc == 0, f"window variant {name} launch failed with CUDA error {rc}")
+            rc = fn(start.data_ptr(), count.data_ptr(), feat.data_ptr(), out.data_ptr(),
+                    bisect.PROBES.index(probe), start.shape[0], feat.shape[1],
+                    torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"bisect {probe} of {name} launch failed with CUDA error {rc}")
             return out
 
-        kernels[name] = window
+        kernels[name] = run
     return kernels
 
 
@@ -2555,10 +2573,14 @@ def wrapper_costs(start, count, feat, reps=500):
     return us
 
 
-def bisect_probes(res):
+def bisect_probes(res, other=None):
     """Phase 9: the bisect probes through their CLI, held to their plain
-    versions on five start / count sets, timed, then ``window`` at the dense
-    view 0's run layout."""
+    versions on five start / count sets, timed in turns with the
+    launch-and-store floor, then ``window`` at the dense view 0's run
+    layout. Given the csrc directory of another checkout (``--probes
+    CSRC``), its probes too: on every set ``window`` and ``tri_mm`` must
+    give this tree's bits and ``aligned`` and ``mm_highest`` stay within
+    the tolerance, each timed alone in the same turns."""
     from radegs_torch.ops import bisect
     from radegs_torch.ops import blend
     from radegs_torch.ops.rasterize import bin_prep, blend_inputs
@@ -2572,6 +2594,7 @@ def bisect_probes(res):
     log(f"phase 9 kernel_bisect: {' | '.join(text.strip().splitlines())}; launches {launches}")
     check(failed == 0 and all(v > 0 for v in launches.values()),
           f"kernel_bisect: {failed} probes failed, launches {launches}")
+    copies = probe_copies(other)
     long_feat = torch.from_numpy(np.random.default_rng(0).normal(size=(25, LONG_RUN_B))
                                  .astype(np.float32)).to(dev)
     sets = [kb.inputs(dev, st, ct) for st, ct in
@@ -2581,9 +2604,13 @@ def bisect_probes(res):
     start_al, n = bisect.window_bounds(*sets[-1][:2])
     check(n.tolist() == list(LONG_RUN_WINDOWS) and int((start_al + n * 128).max()) == LONG_RUN_B,
           f"long-run set: windows {n.tolist()}")
+    jstart, jcount, jfeat = kb.inputs(dev)  # timed at the JAX shapes
+    # the launch-and-store floor: the least a launch that writes the (T, 8,
+    # 256) output takes in this harness (a yardstick, not the bound)
+    floor_out = torch.empty((jstart.shape[0], 8, 256), device=dev)
     rows = {}
     for probe in bisect.PROBES:
-        err_max, worst, h = 0.0, 0.0, hashlib.sha256()
+        err_max, worst, other_share, h = 0.0, 0.0, 0.0, hashlib.sha256()
         for start, count, feat in sets:
             out = bisect.WRAPPERS[probe](start, count, feat)
             again = bisect.WRAPPERS[probe](start, count, feat)
@@ -2595,23 +2622,45 @@ def bisect_probes(res):
                   f"{err} at {share} of the tolerance")
             err_max, worst = max(err_max, err), max(worst, share)
             h.update(out.cpu().numpy().tobytes())
-        start, count, feat = kb.inputs(dev)  # timed at the JAX shapes
-        ms = graph_ms(lambda: bisect.WRAPPERS[probe](start, count, feat), 100)
-        call_ms = float(np.median([time_ms(lambda: bisect.WRAPPERS[probe](start, count, feat),
+            if other:
+                o = copies["other"](probe, start, count, feat)
+                check(same_bits(o, copies["other"](probe, start, count, feat)),
+                      f"bisect {probe} of the other checkout differs between two runs")
+                if probe in ("window", "tri_mm"):
+                    check(same_bits(o, out), f"bisect {probe}: the other checkout's bits differ")
+                other_share = max(other_share,
+                                  probe_held(probe, o, plain, start, count, feat)[1])
+                check(other_share <= 1.0, f"bisect {probe} of the other checkout on "
+                      f"{start.tolist()}: error at {other_share} of the tolerance")
+        # each alone in graphs of 100 launches, in turns: this tree, the
+        # floor, the other checkout's, then back, three times
+        calls = {"tree": functools.partial(bisect.WRAPPERS[probe], jstart, jcount, jfeat),
+                 "floor": functools.partial(floor_out.fill_, 0.0)}
+        if other:
+            calls["other"] = functools.partial(copies["other"], probe, jstart, jcount, jfeat)
+        turns = {k: [] for k in calls}
+        for k in (list(calls) + list(calls)[::-1]) * 3:
+            turns[k].append(round(graph_ms(calls[k], 100), 6))
+        ms, floor_ms = float(np.median(turns["tree"])), float(np.median(turns["floor"]))
+        call_ms = float(np.median([time_ms(lambda: bisect.WRAPPERS[probe](jstart, jcount, jfeat),
                                            200) for _ in range(3)]))
-        plain_ms = time_ms(lambda: bisect.PLAIN[probe](start, count, feat), 1)
-        library_ms = graph_ms(bisect_library(probe, start, count, feat), 100)
-        bound = bisect_bound_ms(probe, start, count, feat)
-        rows[probe] = dict(err=err_max, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound=bound)
+        plain_ms = time_ms(lambda: bisect.PLAIN[probe](jstart, jcount, jfeat), 1)
+        library_ms = graph_ms(bisect_library(probe, jstart, jcount, jfeat), 100)
+        bound = bisect_bound_ms(probe, jstart, jcount, jfeat)
+        rows[probe] = dict(err=err_max, ms=ms, floor_ms=floor_ms, call_ms=call_ms,
+                           plain_ms=plain_ms, library_ms=library_ms, bound=bound)
         log(f"phase 9 bisect {probe}: {len(sets)} start/count sets (the last: windows "
             f"{list(LONG_RUN_WINDOWS)} in {LONG_RUN_B} columns), max abs err {err_max:.3e} "
             f"({worst:.3f} of the tolerance), run == rerun bitwise, outputs sha256 "
-            f"{h.hexdigest()[:16]}; kernel {ms:.5f} ms (100 launches in a CUDA graph), call_ms "
+            f"{h.hexdigest()[:16]}; kernel {ms:.6f} ms, floor {floor_ms:.6f} (fill_ of the "
+            f"output) (medians of 6 CUDA graphs of 100 launches, in turns: {turns}), call_ms "
             f"{call_ms:.5f} (per wrapper call from the host, median of 3 x 200), plain "
             f"{plain_ms:.4f}, library {library_ms:.5f} (graph), bound {bound[0]:.7f} ms by "
-            f"{bound[1]} ({bound[2]} bytes, {bound[3]} FP32 operations)")
-    costs = wrapper_costs(*kb.inputs(dev))
+            f"{bound[1]} ({bound[2]} bytes, {bound[3]} FP32 operations)"
+            + (f"; the other checkout's {np.median(turns['other']):.6f} ms (median), "
+               + ("bitwise equal on every set" if probe in ("window", "tri_mm") else
+                  f"at {other_share:.3f} of the tolerance") if other else ""))
+    costs = wrapper_costs(jstart, jcount, jfeat)
     log("phase 9 probe wrapper pieces, host us per call: "
         + ", ".join(f"{k} {v:.3f}" for k, v in costs.items()))
 
@@ -2656,9 +2705,9 @@ def bisect_probes(res):
         sum_ms = graph_ms(lambda: torch.sum(feat), 20)
         # the ring at other depths: each gives the kernel's result bit for
         # bit; timed here and at the JAX shapes
-        jstart, jcount, jfeat = kb.inputs(dev)
         variants = {}
-        for name, fn in window_variants(WINDOW_VARIANTS).items():
+        for name in WINDOW_VARIANTS:
+            fn = functools.partial(copies[name], "window")
             check(same_bits(fn(start, count, feat), out) and
                   same_bits(fn(jstart, jcount, jfeat), bisect.window(jstart, jcount, jfeat)),
                   f"window variant {name} gives another result than the kernel")
@@ -2678,9 +2727,11 @@ def bisect_probes(res):
     return dict(rows=rows, launches=launches, dense=dict(ms=dms, bound=dbound, fwd_ms=fwd_ms))
 
 
-def probes_only(workdir):
-    """``--probes``: phase 9 alone, on the dense scene it writes and bins as
-    phase 4 does (the budget from the measured demand of its 2 views)."""
+def probes_only(workdir, other):
+    """``--probes [CSRC]``: phase 9 alone, on the dense scene it writes and
+    bins as phase 4 does (the budget from the measured demand of its 2
+    views); given the csrc directory of another checkout, beside its
+    probes."""
     from radegs_torch.ops.binning import default_instance_budget, round_budget
     from radegs_torch.ops.rasterize import bin_prep
     from radegs_torch.renderer import prepare
@@ -2695,7 +2746,7 @@ def probes_only(workdir):
                    for cam, _, _ in mesh_views()[:2])
     del state
     torch.cuda.empty_cache()
-    bisect_probes(dict(dpath=dpath, dcap=dcap, dbudget=round_budget(need)))
+    bisect_probes(dict(dpath=dpath, dcap=dcap, dbudget=round_budget(need)), other)
 
 
 def profile_serving(workdir):
@@ -2883,9 +2934,9 @@ def main():
             profile_serving(tmp)
             profile_training(tmp)
         return
-    if sys.argv[1:] == ["--probes"]:
+    if sys.argv[1:2] == ["--probes"]:
         with tempfile.TemporaryDirectory(dir=workdir) as tmp:
-            probes_only(tmp)
+            probes_only(tmp, sys.argv[2] if len(sys.argv) > 2 else None)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return
     if sys.argv[1:2] == ["--bwd"]:
@@ -2972,6 +3023,7 @@ def main():
             "launches": probes["launches"][f"bisect_{probe}"], "max_abs_err": row["err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
             "bound_by": row["bound"][1], "library_ms": row["library_ms"],
+            "floor_ms": row["floor_ms"],
         })
     log(f"backward kernel vs plain, max rel err per field over phases 2 and 5: "
         f"{max([p[2] for p in parity] + [v['rel'] for v in bwd.values()]):.3e}; vs the "

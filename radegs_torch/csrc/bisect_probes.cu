@@ -1,8 +1,7 @@
 // The four bisect probes on Hopper (sm_90a): the smallest kernels that use
-// what later redesigns of the blend and integrate kernels need — an
-// asynchronous bulk copy of a feature window into shared memory completed
-// on a barrier, a ring of such copies streamed over one tile's run, a
-// full-FP32 product inside a kernel, and a prefix sum as a warp scan.
+// what the blend and integrate kernels need — a ring of tensor-map copies
+// streamed over one tile's run, plain 16-byte loads, full-FP32 dot
+// products and a prefix sum as a warp scan.
 //
 // Replaces the TPU kernels of scripts/_kernel_bisect.py (D): k_aligned
 // (:43), k_window (:53), k_mm_highest (:72) and k_tri_mm (:86), all run
@@ -10,8 +9,7 @@
 // matrix feat (25, B) float32 in device memory, per-step start / count
 // (int32, scalar-prefetched there) and an (T, 8, 256) float32 output.
 //
-// What each computes for grid step t (one block per step here; output
-// column j of the 8 rows belongs to thread j, or to a float4 store):
+// What each computes for grid step t (one block per step here):
 //   aligned     the sum of feat[0:25, 0:128], broadcast;
 //   window      the sum over n = cdiv(start - start_al + count, 128) whole
 //               128-column windows from start_al = start // 128 * 128 (n = 0
@@ -21,42 +19,39 @@
 //               no TF32, no tensor cores);
 //   tri_mm      rows 0..7 of tri @ x, tri[r, c] = (r >= c), x[c, j] = f[0, c]:
 //               the inclusive prefix sum of f[0, 0..7], broadcast over 256.
+// Rows are read in 16-byte units: the wrapper requires B % 128 == 0.
 //
-// Staging: a 25 x 128 window goes into shared memory by the Tensor Memory
-// Accelerator, completed on an mbarrier armed with the expected byte count
-// — the TPU's make_async_copy + DMA semaphore. aligned and mm_highest issue
-// 25 row copies of 512 bytes (cp.async.bulk) from one thread; window issues
-// one 2D tensor-map copy (cp.async.bulk.tensor.2d, a 25 x 128 box). Both
-// need 16-byte aligned rows: the wrapper requires B % 128 == 0.
+// aligned, mm_highest, tri_mm: the launch, one load round trip and the 32
+// KB of stores of a (4, 8, 256) output bound them, not bytes or FLOPs. Each
+// reads with plain loads, all in flight before the first add, and stores
+// its (8, 256) slab as float4s. A bulk copy does not pay at this size: its
+// barrier, serial issue and round trip cost more than the read. mm_highest
+// is R[i, j] = f[i, 0:128] . f[0, 0:128] (w's columns are all f[0]): 8 dot
+// products once a block with __fmaf_rn (1,024 multiply-adds fill no
+// tensor-core tile); rows 8..18 of f never reach R[:8] and are not read.
+// tri_mm, the TPU's product with a lower-triangular matrix, is a shuffle
+// scan of 8 values. aligned's eight warps split the rows and mm_highest
+// gives each warp a row, both meeting at one barrier: on an NVIDIA H100
+// 80GB HBM3 at 700 W (chip_smoke.py --probes, CUDA graphs of 100 launches
+// at the JAX shapes) that was faster than one warp a block reading all 25
+// rows (2.25 against 1.46 us) and than every warp computing all 8 rows by
+// a reduce-scatter, with no barrier (1.556 against 1.422 us).
 //
-// window: what bounds it on an H100 is bytes (each window value is read
-// once and added once). It streams a step's windows through a ring of
-// STAGES windows in dynamic shared memory, fed by one producer thread
-// (warp 8, lane 0): it arms a stage's `full` barrier and issues the
-// window's copy. At block start it issues min(n, STAGES) windows, so a
-// step of up to STAGES windows pays one copy latency. The eight consumer
-// warps arrive on a stage's `empty` barrier when they have read it; the
-// producer refills the stage once that barrier completes, with no
-// block-wide barrier per window. Each step's windows are checked against
-// the matrix on the card: a step whose windows leave it writes NaN (the
-// host never reads the bounds back). On an NVIDIA H100 80GB HBM3 at 700 W
-// (chip_smoke.py phase 9): 25 row copies per window, even issued by 25
-// lanes at once, took 4.14 us at the JAX shapes against 2.46 us with one
-// tensor-map copy; at the dense view 0's run layout (7.4M instances, 7,500
-// steps) S = 8 was the fastest ring of 2..16 windows (0.2781 ms, 86% of the
-// 0.2398 ms bytes bound; S = 4 0.2861, S = 3 0.2895; the two-buffer kernel
-// this ring replaced 80%). At 102.4 KB two blocks share an SM.
-//
-// tri_mm: its output needs the 8 values f[0, 0..7], 7 adds and 32 KB of
-// stores, so launch and store time bound it. Each warp loads the 8 values
-// with one plain 32-byte load (no bulk copy and no barrier: 32 bytes do not
-// pay for a copy's round trip), scans them with __shfl_up_sync in 3 steps
-// and stores the block's (8, 256) slab as float4. The TPU's product with a
-// lower-triangular matrix on the MXU is a shuffle scan here: at width 8 the
-// tensor cores bring nothing.
+// window: bytes bound it. It streams a step's windows through a ring of
+// STAGES windows in dynamic shared memory, each a 2D tensor-map copy
+// (cp.async.bulk.tensor.2d, a 25 x 128 box) completed on an mbarrier armed
+// with its byte count — the TPU's make_async_copy + DMA semaphore. One
+// producer thread (warp 8, lane 0) issues min(n, STAGES) windows at block
+// start and refills a stage once the eight consumer warps have arrived on
+// its `empty` barrier: no block-wide barrier per window. A step whose
+// windows leave the matrix writes NaN (checked on the card: the host never
+// reads the bounds back). On an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py phase 9) S = 8 was the fastest ring of 2..16 windows at
+// the dense view 0's run layout (0.2781 ms, 86% of its bytes bound); at
+// 102.4 KB two blocks share an SM.
 //
 // The sums are reduced in a fixed order (per thread, then warp shuffles,
-// then the 8 warps in order; the scan in a fixed tree): bit-identical from
+// then the warps in order; the scan in a fixed tree): bit-identical from
 // run to run.
 
 #include <cstdint>
@@ -109,17 +104,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// One row of a window: columns col0 .. col0 + 127 of feature row r into
-// dst + r * CH, completing on `bar`.
-__device__ __forceinline__ void copy_row(float* dst, const float* feat, long long B,
-                                         long long col0, int r, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];" ::"r"(smem_addr(dst + r * CH)),
-      "l"(feat + r * B + col0), "r"(static_cast<uint32_t>(CH * 4)), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // A whole window, columns col0 .. col0 + 127 of the 25 rows, into dst as
 // one 2D box of `map` (25 x 128 floats, row-major), completing on `bar`.
 __device__ __forceinline__ void copy_window(float* dst, const CUtensorMap* map, int col0,
@@ -129,15 +113,6 @@ __device__ __forceinline__ void copy_window(float* dst, const CUtensorMap* map, 
       "{%2, %3}], [%4];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col0), "r"(0), "r"(smem_addr(bar))
       : "memory");
-}
-
-// One thread: arm `bar` for a whole window and issue its 25 row copies
-// (columns col0 .. col0 + 127 of each row) into `dst`.
-__device__ __forceinline__ void stage_window(float* dst, const float* feat, long long B,
-                                             long long col0, uint64_t* bar) {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  mbar_expect(bar, WIN_BYTES);
-  for (int r = 0; r < ROWS; ++r) copy_row(dst, feat, B, col0, r, bar);
 }
 
 // The sum of one value per thread over threads 0..THREADS-1, in a fixed
@@ -165,14 +140,22 @@ __device__ __forceinline__ void broadcast(float* out, int t, float v) {
   for (int i = 0; i < OUT_ROWS; ++i) out[(t * OUT_ROWS + i) * THREADS + threadIdx.x] = v;
 }
 
-// This thread's share of a staged window: elements j, j + 256, ...
-__device__ __forceinline__ float window_part(const float* w) {
-  float s = 0.0f;
-  for (int k = threadIdx.x; k < WIN; k += THREADS) s += w[k];
-  return s;
+// The block's (8, 256) slab of step t as float4s, 2 a thread: float4 q
+// holds row q / 64, whose value is row_value(q / 64).
+template <class RowValue>
+__device__ __forceinline__ void store_slab(float* out, int t, RowValue row_value) {
+  float4* slab = reinterpret_cast<float4*>(out + t * OUT_ROWS * THREADS);
+  constexpr int PER_ROW = THREADS / 4;
+#pragma unroll
+  for (int k = 0; k < OUT_ROWS * PER_ROW / THREADS; ++k) {
+    const int q = threadIdx.x + k * THREADS;
+    const float p = row_value(q / PER_ROW);
+    slab[q] = make_float4(p, p, p, p);
+  }
 }
 
-// The same share as float4 loads: float4s j, j + 256, ... (4 partial sums)
+// This thread's share of a staged window: float4s j, j + 256, ... (4
+// partial sums)
 __device__ __forceinline__ float window_part4(const float* w) {
   const float4* w4 = reinterpret_cast<const float4*>(w);
   float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -186,19 +169,28 @@ __device__ __forceinline__ float window_part4(const float* w) {
   return (s.x + s.y) + (s.z + s.w);
 }
 
+// aligned: warp w reads rows w, w + 8, ... (< 25; zeros past the last) of
+// the window, one float4 a lane per row, every load issued before the first
+// add.
 __global__ void __launch_bounds__(THREADS)
 aligned_kernel(const float* __restrict__ feat, long long B, float* __restrict__ out) {
-  __shared__ __align__(128) float buf[WIN];
-  __shared__ __align__(8) uint64_t bar;
-  __shared__ float red[THREADS / 32];
-  if (threadIdx.x == 0) {
-    mbar_init(&bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  constexpr int WARPS = THREADS / 32;
+  constexpr int PER_WARP = (ROWS + WARPS - 1) / WARPS;
+  const int warp = threadIdx.x >> 5;
+  __builtin_assume(warp < WARPS);  // so rows w, w + 8, w + 16 need no test
+  const float4* f4 = reinterpret_cast<const float4*>(feat) + (threadIdx.x & 31);
+  float4 v[PER_WARP];
+#pragma unroll
+  for (int k = 0; k < PER_WARP; ++k) {
+    const int r = warp + k * WARPS;
+    v[k] = r < ROWS ? __ldg(f4 + r * (B / 4)) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  __syncthreads();
-  if (threadIdx.x == 0) stage_window(buf, feat, B, 0, &bar);
-  mbar_wait(&bar, 0);
-  broadcast(out, blockIdx.x, block_sum<0>(window_part(buf), red));
+  float s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < PER_WARP; ++k) s += (v[k].x + v[k].y) + (v[k].z + v[k].w);
+  __shared__ float red[WARPS];
+  s = block_sum<0>(s, red);
+  store_slab(out, blockIdx.x, [s](int) { return s; });
 }
 
 // Threads 0..255 consume (thread j owns output column j), thread 256 produces.
@@ -266,30 +258,25 @@ window_kernel(const __grid_constant__ CUtensorMap map, const int* __restrict__ s
   broadcast(out, t, block_sum<1>(acc, red));
 }
 
-// mm_highest: thread j computes column j of rows 0..7 as a 128-term FP32
-// FMA chain over the staged rows.
+// mm_highest: warp w computes row w, each lane on float4 `lane` of row w
+// and of row 0; the 8 sums meet in shared memory at one barrier.
 __global__ void __launch_bounds__(THREADS)
 product_kernel(const float* __restrict__ feat, long long B, float* __restrict__ out) {
-  __shared__ __align__(128) float buf[WIN];
-  __shared__ __align__(8) uint64_t bar;
-  if (threadIdx.x == 0) {
-    mbar_init(&bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
+  static_assert(THREADS == 32 * OUT_ROWS, "a warp per row of R");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float4* f4 = reinterpret_cast<const float4*>(feat) + lane;
+  // both loads issued at once (warp 0 reads row 0 twice: a select of x
+  // would wait for x before issuing the second)
+  const float4 x = __ldg(f4);  // f[0, 4 lane .. 4 lane + 3]
+  const float4 v = __ldg(f4 + warp * (B / 4));
+  float acc = __fmaf_rn(v.w, x.w, __fmaf_rn(v.z, x.z, __fmaf_rn(v.y, x.y, __fmul_rn(v.x, x.x))));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  __shared__ float dots[OUT_ROWS];
+  if (lane == 0) dots[warp] = acc;
   __syncthreads();
-  if (threadIdx.x == 0) stage_window(buf, feat, B, 0, &bar);
-  mbar_wait(&bar, 0);
-  float acc[OUT_ROWS];
-#pragma unroll
-  for (int i = 0; i < OUT_ROWS; ++i) acc[i] = 0.0f;
-  for (int c = 0; c < CH; ++c) {
-    const float w = buf[c];  // w[c, j] = f[0, c]
-#pragma unroll
-    for (int i = 0; i < OUT_ROWS; ++i) acc[i] = __fmaf_rn(buf[i * CH + c], w, acc[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < OUT_ROWS; ++i)
-    out[(blockIdx.x * OUT_ROWS + i) * THREADS + threadIdx.x] = acc[i];
+  store_slab(out, blockIdx.x, [&](int r) { return dots[r]; });
 }
 
 // tri_mm: every warp scans f[0, 0..7] itself (lanes 8..31 repeat lanes

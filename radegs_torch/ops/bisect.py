@@ -17,9 +17,10 @@ float32:
 - ``tri_mm``: rows 0..7 of ``tri @ x``, ``tri[r, c] = (r >= c)``,
   ``x[c, j] = f[0, c]``.
 
-The ``aligned``, ``window`` and ``mm_highest`` kernels stage 128-column
-windows with bulk asynchronous copies, which need B to be a multiple of 128
-(every wrapper checks it; ``pad_columns`` pads a matrix with zero columns).
+The kernels read whole 128-column rows in 16-byte units (``window`` with
+tensor-map copies, the others with plain loads), which needs B to be a
+multiple of 128 (every wrapper checks it; ``pad_columns`` pads a matrix
+with zero columns).
 The ``window`` kernel checks each step's windows against the matrix on the
 card, so its wrapper never waits for it.
 A wrapper call resolves the C entry once and switches device only for

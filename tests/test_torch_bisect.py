@@ -4,7 +4,11 @@ interpret mode on the CPU, on the script's own start / count and two seeded
 sets (an empty step, unaligned starts, a window ending on the last column),
 on the long-run set (steps of 0, 1, 3, 4, 5 and 64 windows in a (25, 8192)
 matrix: the run lengths the ``window`` kernel's ring meets) and, for
-``tri_mm``, on two more seeded matrices.
+``tri_mm``, ``aligned`` and ``mm_highest``, on more seeded matrices (for the
+last two also one of entries near +-1e4, whose sums cancel, and NaN / Inf
+placed in and outside the rows each reads). ``mm_highest`` is also held to
+the identity its kernel computes: 8 dot products ``f[i, :128] . f[0, :128]``
+broadcast over columns and steps.
 
 The script is loaded with ``ast``: its four module-level ``run(...)`` calls
 are dropped, and its grid spec is taken from the ``grid_spec = ...``
@@ -12,17 +16,20 @@ statement of ``run`` (evaluated with the grid's T set to the number of
 steps), so the kernels run with the script's own spec. Tolerance: abs 1e-5
 x the sum of |terms| of each output (per step for the window sums; the
 largest row's |products| for ``mm_highest``).
+
+The ``cuda``-marked tests hold the kernels to the plain versions on the
+card; the file imports JAX only inside the fixture and helper that run the
+Pallas kernels, so those tests also run where JAX is missing::
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_bisect.py
 """
 
 import ast
 import pathlib
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
 
 from radegs_torch.ops import bisect
 from radegs_torch.scripts import kernel_bisect as kb
@@ -68,6 +75,10 @@ def script():
 
 def jax_probe(script, probe, start, count, feat):
     """The script's kernel over a grid of len(start) steps, in interpret mode."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
     ns, spec = script
     T = len(start)
     grid_spec = eval(spec, {**ns, "T": T})
@@ -126,6 +137,77 @@ def test_plain_tri_mm_matches_pallas_interpret_on_more_matrices(script, seed):
     want = jax_probe(script, "tri_mm", kb.START, kb.COUNT, feat)
     got = bisect.tri_mm_torch(t_start, t_count, t_feat).numpy()
     assert (np.abs(got - want) <= tolerance("tri_mm", kb.START, kb.COUNT, feat)).all()
+
+
+# matrices for aligned and mm_highest: seeded normals, and entries near +-1e4
+# of mixed signs (sums that cancel to a small fraction of their |terms|)
+MATRICES = [3, 4, "1e4"]
+# NaN / Inf placed at (row, column) of feat: in row 0 (every product row), in
+# a product row, in a row only aligned reads, past column 127 (read by
+# neither), +Inf in a product row, and +-Inf in two (NaN for aligned)
+NONFINITE = [
+    [(0, 7, np.nan)], [(3, 5, np.nan)], [(12, 9, np.nan)], [(4, 200, np.nan)],
+    [(6, 3, np.inf)], [(2, 1, np.inf), (5, 6, -np.inf)],
+]
+
+
+def matrix(kind, B=kb.B):
+    """A (25, B) float32 feature matrix: seeded normals for an int, else
+    +-1e4 (1 + u), u ~ U(0, 1e-3), with seeded signs."""
+    if kind != "1e4":
+        return np.random.default_rng(kind).normal(size=(25, B)).astype(np.float32)
+    rng = np.random.default_rng(5)
+    sign = rng.choice([-1.0, 1.0], size=(25, B))
+    return (sign * 1e4 * (1.0 + rng.uniform(0.0, 1e-3, size=(25, B)))).astype(np.float32)
+
+
+def with_nonfinite(feat, places):
+    feat = feat.copy()
+    for r, c, v in places:
+        feat[r, c] = v
+    return feat
+
+
+def nonfinite_matches(got, want):
+    """NaN on the same outputs, and the same +-Inf on the same outputs."""
+    return (np.array_equal(np.isnan(got), np.isnan(want))
+            and np.array_equal(np.isposinf(got), np.isposinf(want))
+            and np.array_equal(np.isneginf(got), np.isneginf(want)))
+
+
+@pytest.mark.parametrize("kind", MATRICES)
+@pytest.mark.parametrize("probe", ["aligned", "mm_highest"])
+def test_plain_sum_and_product_match_pallas_interpret_on_more_matrices(script, probe, kind):
+    feat = matrix(kind)
+    if kind == "1e4":  # the sums cancel: |sum| well below the sum of |terms|
+        assert abs(float(feat[:, :128].astype(np.float64).sum())) < 0.1 * 3200 * 1e4
+    want = jax_probe(script, probe, kb.START, kb.COUNT, feat)
+    got = bisect.PLAIN[probe](*kb.inputs("cpu")[:2], torch.from_numpy(feat)).numpy()
+    assert got.shape == want.shape == (4, 8, 256)
+    assert (np.abs(got - want) <= tolerance(probe, kb.START, kb.COUNT, feat)).all()
+
+
+@pytest.mark.parametrize("kind", MATRICES)
+def test_mm_highest_is_eight_dot_products_broadcast(script, kind):
+    feat = matrix(kind)
+    f = feat[:, :128].astype(np.float64)
+    dots = f[:8] @ f[0]  # R[i, j] = f[i, :128] . f[0, :128] for every j
+    want = np.broadcast_to(dots[None, :, None], (4, 8, 256))
+    got = jax_probe(script, "mm_highest", kb.START, kb.COUNT, feat)
+    assert (np.abs(got - want) <= tolerance("mm_highest", kb.START, kb.COUNT, feat)).all()
+
+
+@pytest.mark.parametrize("case", range(len(NONFINITE)))
+@pytest.mark.parametrize("probe", ["aligned", "mm_highest"])
+def test_plain_sum_and_product_put_nan_and_inf_where_pallas_interpret_does(script, probe,
+                                                                           case):
+    feat = with_nonfinite(matrix(3), NONFINITE[case])
+    want = jax_probe(script, probe, kb.START, kb.COUNT, feat)
+    got = bisect.PLAIN[probe](*kb.inputs("cpu")[:2], torch.from_numpy(feat)).numpy()
+    assert nonfinite_matches(got, want)
+    fin = np.isfinite(want)
+    tol = tolerance(probe, kb.START, kb.COUNT, np.nan_to_num(feat, posinf=0, neginf=0))
+    assert (np.abs(got[fin] - want[fin]) <= tol[fin]).all()
 
 
 def test_long_run_set_covers_the_ring():
@@ -222,3 +304,37 @@ def test_ring_kernel_nan_steps_are_bitwise_stable():
     again = bisect.window(start, count, feat)
     assert torch.equal(out.view(torch.int32), again.view(torch.int32))
     assert torch.equal(torch.isnan(out), torch.isnan(bisect.window_torch(start, count, feat)))
+
+
+@pytest.mark.cuda
+def test_sum_and_product_kernels_match_plain_at_every_width():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for B in (128, 8192):
+        for kind in MATRICES:
+            feat = torch.from_numpy(matrix(kind, B)).cuda()
+            for T in (1, 4, 64):
+                start = torch.zeros(T, dtype=torch.int32, device="cuda")
+                count = torch.full((T,), 100, dtype=torch.int32, device="cuda")
+                for probe in ("aligned", "mm_highest"):
+                    out = bisect.WRAPPERS[probe](start, count, feat)
+                    again = bisect.WRAPPERS[probe](start, count, feat)
+                    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+                    tol = tolerance(probe, [0] * T, [100] * T, feat.cpu().numpy())
+                    err = (out - bisect.PLAIN[probe](start, count, feat)).abs().cpu().numpy()
+                    assert (err <= tol).all(), (probe, B, kind, T, float(err.max()))
+
+
+@pytest.mark.cuda
+def test_sum_and_product_kernels_put_nan_and_inf_where_plain_does():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    start, count, _ = kb.inputs("cuda")
+    for places in NONFINITE:
+        feat = torch.from_numpy(with_nonfinite(matrix(3), places)).cuda()
+        for probe in ("aligned", "mm_highest"):
+            out = bisect.WRAPPERS[probe](start, count, feat)
+            again = bisect.WRAPPERS[probe](start, count, feat)
+            assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+            plain = bisect.PLAIN[probe](start, count, feat).cpu().numpy()
+            assert nonfinite_matches(out.cpu().numpy(), plain), (probe, places)
