@@ -136,6 +136,38 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
    with the longest runs first, ``torch.sum`` over the matrix, and the
    kernel built with other ring depths (``WINDOW_VARIANTS``; also timed at
    the JAX shapes).
+10. Evaluation, on phase 8's outputs (launch counts set to 0 before and read
+   after; runs before phase 9).
+   a. LPIPS at 1600x1200 (``eval.lpips.load_weights`` of seeded random
+      weights, tests/test_lpips.py's recipe, written as a ``.npz``) of the
+      first test render against its gt: float32 on the card within rel 1e-4
+      of the same module in float64, the same bits with TF32 allowed by the
+      caller and from run to run; ms per pair (CUDA events, median of 5)
+      against its FP32 convolution FLOPs over the card's peak; peak memory.
+   b. ``python -m radegs_torch.scripts.metrics --lpips_weights`` as a
+      subprocess: ``results.json`` with SSIM / PSNR / LPIPS, its PSNR within
+      0.5 dB of the train CLI's test PSNR (the 8-bit PNG round trip), view
+      0's LPIPS that of 10a; s per view.
+   c. Phase 8's TSDF mesh on synthetic ground truth of the noise-free scene
+      (samples 0.01 apart on the sphere and the plane square), each CLI
+      through ``main(argv)``: ``cull_mesh`` (a TNT ``.log`` of the 16
+      cameras, >= 2 views); ``eval_tnt`` (a crop volume, tau = 3 x the
+      plane's splat sigma): its precision within 0.02 of the share of its
+      estimated points (ICP-transformed, cropped, downsampled) within tau of
+      the surfaces; ``eval_dtu`` on a DTU layout (ObsMask all true over the
+      bounding box, a Plane keeping everything, the stl cloud, the dataset's
+      cameras as ``Calibration/cal18/pos_*.txt``; density 0.02, patch 0.5,
+      max_dist 0.3): ``mean_d2s`` within the stl spacing above the
+      analytic distance of the same samples, ``overall`` under 3 splat sigmas
+      of the nearer surface; ``evaluate_dtu_mesh``: the Procrustes transform
+      the identity within 1e-4. Wall seconds of each CLI and the stages of
+      ``evaluate_dtu`` / ``evaluate_tnt``.
+   d. ``train --ip`` for 30 iterations on phase 8's dataset with a client
+      thread speaking the SIBR protocol: 40 keep-alive requests of a 320x240
+      view (one frame an iteration while it trains, then frames of the final
+      state), then one without keep-alive; the last frame equals ``render`` of
+      the state the CLI returns at the same camera and scaling modifier,
+      quantised the same way, and the CLI returns.
 
 ``python3 chip_smoke.py --fwd [CSRC]`` runs only phase 2's forward checks
 and the forward at phase 5's three shapes, beside the forward kernel
@@ -169,6 +201,8 @@ its C entry takes the same arguments): on every set of phase 9 its
 and ``mm_highest`` stay within ``BISECT_REL_TOL`` of the plain version;
 each of its probes joins the turns of this tree's (this tree, the floor,
 the other, then back, three times).
+``python3 chip_smoke.py --eval`` runs only phase 8 (dataset, train,
+render and mesh CLIs) and phase 10.
 ``python3 chip_smoke.py --train100k`` runs only phase 3's 100k serving at
 the configured G and phase 6's 100 iterations of the 100k scene and
 ``python3 chip_smoke.py --tetra`` only phase 7c: copied into a checkout of
@@ -189,6 +223,7 @@ import json
 import math
 import os
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -321,6 +356,20 @@ CLI_SCHEDULE = ["--densify_from_iter", "100", "--densification_interval", "100",
                 "--densify_until_iter", "250", "--regularization_from_iter", "100",
                 "--position_lr_max_steps", str(CLI_ITERS), "--kernel_size", "0.1"]
 PSNR_GAIN = 3.0  # dB, test PSNR at 300 over that at 1
+# phase 10: evaluation on phase 8's outputs
+LPIPS_SEED = 7  # tests/test_lpips.py's random-weight recipe
+LPIPS_REL_TOL = 1e-4  # float32 on the card vs float64 on the card
+METRICS_PSNR_TOL = 0.5  # dB: the 8-bit PNG round trip against the train CLI's test PSNR
+GT_SPACING = STL_SPACING = 0.01  # the synthetic ground truth's sample spacing
+DTU_SCAN, DTU_RES = 1, 0.05
+# the DTU protocol in the scene's units: phase 8's TSDF mesh (~0.96M vertices,
+# edges ~0.015) gets no interior samples at density 0.02, so the radius
+# downsample sees its culled vertices, < 1M points; 0.3 = 12 of the sphere's
+# splat sigmas
+DTU_DENSITY, DTU_PATCH, DTU_MAX_DIST = 0.02, 0.5, 0.3
+TNT_PRECISION_TOL = 0.02
+VIEWER_ITERS, VIEWER_ALIVE, VIEWER_SCALE = 30, 40, 0.9
+VIEWER_W, VIEWER_H = 320, 240
 # phase 9: the bisect probes
 BISECT_REL_TOL = 1e-5  # x sum |terms| (sums, prefix sum) or x max |plain| (product)
 BISECT_SETS = (1, 2)  # seeds of the extra start / count sets
@@ -2400,7 +2449,406 @@ def entry_points(workdir, tr_res):
           and any(v > 0 for k, v in launches.items() if k.startswith("blend_bwd")),
           f"a kernel never ran on the phase 8 path: {launches}")
     log("phase 8 wall seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
-    return dict(walls=walls, ms_it=ms_it, launches=launches)
+    return dict(walls=walls, ms_it=ms_it, launches=launches, workdir=workdir, ds=ds, m1=m1,
+                tpsnr=tpsnr, tsdf_mesh=(verts, faces))
+
+
+# ----------------------------------------------------------- phase 10 ----
+
+
+def write_lpips_weights(path):
+    """Seeded random LPIPS weights (tests/test_lpips.py's recipe: VGG16
+    convolutions N(0, 1) x 0.3, heads |N(0, 1)|) as the ``.npz`` layout of
+    the converted weights."""
+    from radegs_torch.eval.lpips import N_CHANNELS, VGG16_CFG
+
+    rng = np.random.default_rng(LPIPS_SEED)
+    w, cin, ci = {}, 3, 0
+    for item in VGG16_CFG:
+        if item == "M":
+            continue
+        w[f"conv{ci}_w"] = rng.normal(size=(item, cin, 3, 3)).astype(np.float32) * 0.3
+        w[f"conv{ci}_b"] = rng.normal(size=(item,)).astype(np.float32) * 0.3
+        cin, ci = item, ci + 1
+    for k, c in enumerate(N_CHANNELS):
+        w[f"lin{k}"] = np.abs(rng.normal(size=(c,)).astype(np.float32))
+    np.savez(path, **w)
+
+
+def lpips_flops(H, W):
+    """FP32 operations of one LPIPS pair: the 13 VGG16 convolutions up to
+    relu5_3 on both images (an FMA counted as 2; each pool floors odd
+    sizes). The bias, ReLU, normalisation and heads add < 1%."""
+    from radegs_torch.eval.lpips import TAP_AFTER_CONV, VGG16_CFG
+
+    macs, cin, ci = 0, 3, 0
+    for item in VGG16_CFG:
+        if item == "M":
+            H, W = H // 2, W // 2
+            continue
+        if ci > TAP_AFTER_CONV[-1]:
+            break
+        macs += H * W * item * cin * 9
+        cin, ci = item, ci + 1
+    return 2 * 2 * macs
+
+
+def eval_lpips(workdir, m1):
+    """10a: LPIPS of the first test render against its gt at 1600x1200 with
+    seeded random weights loaded through ``load_weights``."""
+    from radegs_torch.eval.lpips import load_weights
+    from radegs_torch.utils.image import read_png
+
+    path = os.path.join(workdir, "lpips_random.npz")
+    write_lpips_weights(path)
+    base = os.path.join(m1, "test", f"ours_{CLI_ITERS}")
+    r, g = (torch.from_numpy(read_png(os.path.join(base, sub, "00000.png")).astype(np.float32)
+                             .transpose(2, 0, 1) / 255.0).to(DEVICE) for sub in ("renders", "gt"))
+    check(r.shape == (3, HEIGHT, WIDTH), f"test render {tuple(r.shape)}")
+    model = load_weights(path, device=DEVICE)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        score = model(r, g)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        rerun = model(r, g)
+        torch.backends.cudnn.allow_tf32 = True  # a caller that allows TF32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = model(r, g)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        ms = sorted(time_ms(lambda: model(r, g), 1, warmup=False) for _ in range(5))[2]
+        f64 = float(load_weights(path, device=DEVICE).double()(r.double(), g.double()))
+    rel = abs(float(score) - f64) / abs(f64)
+    flops = lpips_flops(HEIGHT, WIDTH)
+    bound = flops / PEAK_FP32 * 1e3
+    log(f"phase 10a LPIPS at {WIDTH}x{HEIGHT} (random weights, seed {LPIPS_SEED}): "
+        f"{float(score):.9g}; float64 {f64:.9g} (rel err {rel:.3e}); rerun and with TF32 "
+        f"allowed by the caller bit-identical {same_bits(score, rerun)}, "
+        f"{same_bits(score, tf32)}; {ms:.3f} ms per pair (CUDA events, median of 5), "
+        f"{flops / 1e12:.3f} TFLOP of convolution: {flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{bound / ms:.1%} of the FP32 peak ({bound:.3f} ms bound); peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    check(rel < LPIPS_REL_TOL, f"LPIPS float32 {float(score)} vs float64 {f64}")
+    check(same_bits(score, rerun), "LPIPS run != rerun")
+    check(same_bits(score, tf32), "LPIPS changed with TF32 allowed: the fp32 pin is broken")
+    return dict(path=path, score=float(score))
+
+
+def eval_metrics(m1, tpsnr, lp):
+    """10b: the metrics CLI as a subprocess on phase 8's test renders."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    proc = subprocess.run([sys.executable, "-m", "radegs_torch.scripts.metrics", "-m", m1,
+                           "--lpips_weights", lp["path"], "--device", DEVICE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"metrics exited {proc.returncode}: {proc.stderr[-2000:]}")
+    method = f"ours_{CLI_ITERS}"
+    with open(os.path.join(m1, "results.json")) as f:
+        res = json.load(f)[method]
+    with open(os.path.join(m1, "per_view.json")) as f:
+        per_view = json.load(f)[method]
+    timing = re.search(rf"{method}: .*\((\d+) views in ([\d.]+) s\)", proc.stdout)
+    check(timing is not None, f"metrics output: {proc.stdout}")
+    n, secs = int(timing.group(1)), float(timing.group(2))
+    log(f"phase 10b metrics (subprocess, exit 0): {wall:.3f} s wall; {method}: SSIM "
+        f"{res['SSIM']:.6f} PSNR {res['PSNR']:.4f} LPIPS {res['LPIPS']:.6f} over {n} views, "
+        f"{secs / n:.3f} s per view (PNG decode, SSIM, PSNR, LPIPS); the train CLI's test "
+        f"PSNR {tpsnr[CLI_ITERS]:.4f}")
+    check(res.keys() == {"SSIM", "PSNR", "LPIPS"} and n == 2, f"results.json: {res}")
+    check(abs(res["PSNR"] - tpsnr[CLI_ITERS]) < METRICS_PSNR_TOL,
+          f"metrics PSNR {res['PSNR']} vs the train CLI's {tpsnr[CLI_ITERS]}")
+    check(abs(per_view["LPIPS"]["00000.png"] - lp["score"]) <= 1e-5 * abs(lp["score"]),
+          f"metrics LPIPS of view 0 {per_view['LPIPS']['00000.png']} vs 10a {lp['score']}")
+
+
+def surface_samples(spacing):
+    """Points on phase 8's noise-free surfaces ~``spacing`` apart: a
+    Fibonacci lattice on the sphere r = 1.3 and a square grid on the plane
+    y = -1.4 over x, z in [-3, 3] (surface_points' extent)."""
+    n = int(4 * math.pi * 1.3**2 / spacing**2)
+    k = np.arange(n) + 0.5
+    phi, theta = np.arccos(1 - 2 * k / n), math.pi * (1 + 5**0.5) * k
+    sphere = 1.3 * np.stack([np.cos(theta) * np.sin(phi), np.cos(phi),
+                             np.sin(theta) * np.sin(phi)], 1)
+    g = np.arange(-3.0, 3.0 + spacing / 2, spacing)
+    gx, gz = np.meshgrid(g, g, indexing="ij")
+    plane = np.stack([gx.ravel(), np.full(gx.size, -1.4), gz.ravel()], 1)
+    return np.concatenate([sphere, plane], 0)
+
+
+def finite_surface_distance(p):
+    """Distance to the noise-free sphere and to the plane square (x, z in
+    [-3, 3]), the nearer; and whether the sphere is the nearer."""
+    p = np.asarray(p, np.float64)
+    ds = np.abs(np.linalg.norm(p, axis=1) - 1.3)
+    out = np.maximum(np.abs(p[:, [0, 2]]) - 3.0, 0.0)
+    dp = np.sqrt((p[:, 1] + 1.4) ** 2 + (out**2).sum(1))
+    return np.minimum(ds, dp), ds < dp
+
+
+def write_traj_log(path, cams):
+    """A TNT ``.log`` of the cameras' camera-to-world matrices."""
+    with open(path, "w") as f:
+        for i, cam in enumerate(cams):
+            m = np.linalg.inv(cam.world_view.cpu().numpy().astype(np.float64))
+            f.write(f"{i} {i} 0\n" + "".join(" ".join(repr(float(v)) for v in row) + "\n"
+                                             for row in m))
+
+
+def write_dtu_dir(root, cams, stl):
+    """A DTU reference directory for phase 8's scene: ObsMask all true over
+    its bounding box, a Plane keeping everything, the stl cloud and the
+    dataset's cameras as ``Calibration/cal18/pos_*.txt`` (P = K [R | t])."""
+    from scipy.io import savemat
+
+    from radegs_torch.utils.ply import write_point_cloud
+
+    for sub in ("ObsMask", os.path.join("Points", "stl"), os.path.join("Calibration", "cal18")):
+        os.makedirs(os.path.join(root, sub))
+    bb = np.array([[-3.5, -1.7, -3.5], [3.5, 1.7, 3.5]])
+    shape = tuple(np.ceil((bb[1] - bb[0]) / DTU_RES).astype(int) + 1)
+    savemat(os.path.join(root, "ObsMask", f"ObsMask{DTU_SCAN}_10.mat"),
+            {"ObsMask": np.ones(shape, bool), "BB": bb, "Res": np.array([[DTU_RES]])})
+    savemat(os.path.join(root, "ObsMask", f"Plane{DTU_SCAN}.mat"),
+            {"P": np.array([[0.0], [0.0], [0.0], [1.0]])})
+    write_point_cloud(os.path.join(root, "Points", "stl", f"stl{DTU_SCAN:03}_total.ply"),
+                      stl.astype(np.float32))
+    for i, cam in enumerate(cams):
+        K = np.array([[float(cam.focal_x), 0, cam.width / 2], [0, float(cam.focal_y),
+                                                                cam.height / 2], [0, 0, 1]])
+        w2c = cam.world_view.cpu().numpy().astype(np.float64)
+        np.savetxt(os.path.join(root, "Calibration", "cal18", f"pos_{i + 1:03d}.txt"),
+                   K @ w2c[:3])
+
+
+def dtu_vis_check(out_dir, sigmas):
+    """From ``evaluate_dtu``'s error clouds: the analytic mean distance of
+    the downsampled samples it averaged (red-white: in the mask, d2s below
+    max_dist) and the 3-sigma bounds of both directions, each sample at the
+    splat sigma of its nearer surface."""
+    from radegs_torch.utils.ply import read_point_cloud
+
+    out = {}
+    for side in ("d2s", "s2d"):
+        pts, col, _ = read_point_cloud(os.path.join(out_dir, f"vis_{DTU_SCAN:03}_{side}.ply"))
+        used = col[:, 0] > 0.5  # green: beyond max_dist, blue: outside the mask
+        d, near_s = finite_surface_distance(pts[used])
+        out[side] = (float(d.mean()), CLEAN_SIGMA_TOL * float(
+            np.where(near_s, sigmas[0], sigmas[1]).mean()), int(used.sum()), len(pts))
+    return out
+
+
+def eval_meshes(ep):
+    """10c: phase 8's TSDF mesh through cull_mesh, eval_tnt, eval_dtu and
+    evaluate_dtu_mesh on synthetic ground truth of the noise-free scene."""
+    from radegs_torch.eval.tnt import crop_polygon_volume, voxel_downsample
+    from radegs_torch.scripts import cull_mesh, eval_dtu, eval_tnt, evaluate_dtu_mesh
+    from radegs_torch.utils.ply import write_mesh, write_point_cloud
+
+    workdir, walls = ep["workdir"], {}
+    cams = orbit_cameras(DS_VIEWS, torch.device(DEVICE))
+    state = load_scene(os.path.join(workdir, "ds_scene.ply"), WITNESS_CAPACITY,
+                       [(c, None, i) for i, c in enumerate(cams)])
+    sigmas = splat_sigmas(state)
+    del state
+    tau = CLEAN_SIGMA_TOL * max(sigmas)
+    tsdf_ply = os.path.join(workdir, "tsdf.ply")
+    write_mesh(tsdf_ply, *ep["tsdf_mesh"])
+    log_path = os.path.join(workdir, "orbit.log")
+    write_traj_log(log_path, cams)
+    t0 = time.perf_counter()
+    gt = surface_samples(GT_SPACING)
+    walls["ground_truth"] = time.perf_counter() - t0
+
+    culled = os.path.join(workdir, "tsdf_cull.ply")
+    (cv, cf), walls["cull_mesh"], _ = run_cli(cull_mesh, [
+        "--traj-path", log_path, "--ply-path", tsdf_ply, "--out", culled, "--width", str(WIDTH),
+        "--height", str(HEIGHT), "--fx", repr(float(cams[0].focal_x)), "--fy",
+        repr(float(cams[0].focal_y)), "--min-views", "2", "--device", DEVICE], "cull_mesh")
+    check(0 < len(cf) <= len(ep["tsdf_mesh"][1]), f"cull_mesh kept {len(cf)} faces")
+
+    tnt = os.path.join(workdir, "tnt", "Orbit")
+    os.makedirs(tnt)
+    write_point_cloud(os.path.join(tnt, "Orbit.ply"), gt.astype(np.float32))
+    shutil.copyfile(log_path, os.path.join(tnt, "Orbit_COLMAP_SfM.log"))
+    crop = os.path.join(tnt, "Orbit.json")
+    with open(crop, "w") as f:
+        json.dump({"class_name": "SelectionPolygonVolume", "orthogonal_axis": "Z",
+                   "axis_min": -3.2, "axis_max": 3.2,
+                   "bounding_polygon": [[-3.2, -1.6, 0], [3.2, -1.6, 0], [3.2, 1.6, 0],
+                                        [-3.2, 1.6, 0]]}, f)
+    (r, st), walls["eval_tnt"], _ = run_cli(eval_tnt, [
+        "--dataset_dir", tnt, "--traj_path", log_path, "--ply_path", culled, "--out_dir",
+        os.path.join(workdir, "tnt_out"), "--tau", repr(tau)], "eval_tnt")
+    T = st["transform"]
+    est = cv.astype(np.float64) @ T[:3, :3].T + T[:3, 3]
+    est = voxel_downsample(crop_polygon_volume(est, crop), tau / 2.0)
+    share = float((finite_surface_distance(est)[0] < tau).mean())
+    scale = float(np.cbrt(np.linalg.det(T[:3, :3])))
+    angle = math.degrees(math.acos(np.clip((np.trace(T[:3, :3]) / scale - 1) / 2, -1, 1)))
+    log(f"phase 10c eval_tnt: tau {tau:.5f} (3 x the plane's splat sigma; sigmas {sigmas[0]:.5f}"
+        f" / {sigmas[1]:.5f}), precision {r['precision']:.5f} recall {r['recall']:.5f} F1 "
+        f"{r['f1']:.5f}; the share of its {len(est)} estimated points within tau of the "
+        f"surfaces {share:.5f}; ICP's transform: scale {scale:.6f}, rotation {angle:.4f} deg, "
+        f"translation {np.round(T[:3, 3], 5).tolist()}; stages: "
+        f"registration {st['registration_s']:.3f} s, crop and downsample "
+        f"{st['downsample_s']:.3f} s, histogram queries {st['histo_s']:.3f} s")
+    check(abs(r["precision"] - share) < TNT_PRECISION_TOL,
+          f"TnT precision {r['precision']} vs the analytic share {share}")
+
+    dtu = os.path.join(workdir, "dtu")
+    stl = surface_samples(STL_SPACING)
+    write_dtu_dir(dtu, cams, stl)
+    dtu_args = ["--downsample_density", repr(DTU_DENSITY), "--patch_size", repr(DTU_PATCH),
+                "--max_dist", repr(DTU_MAX_DIST), "--visualize_threshold", repr(DTU_MAX_DIST)]
+    vis = os.path.join(workdir, "dtu_vis")
+    (dr, ds_), walls["eval_dtu"], _ = run_cli(eval_dtu, [
+        "--data", culled, "--scan", str(DTU_SCAN), "--dataset_dir", dtu, "--vis_out_dir", vis,
+        *dtu_args], "eval_dtu")
+    chk = dtu_vis_check(vis, sigmas)
+    bound = (chk["d2s"][1] + chk["s2d"][1]) / 2
+    log(f"phase 10c eval_dtu: mean_d2s {dr['mean_d2s']:.6f} (analytic {chk['d2s'][0]:.6f} over "
+        f"its {chk['d2s'][2]} of {chk['d2s'][3]} samples), mean_s2d {dr['mean_s2d']:.6f} "
+        f"(stl {len(stl)} points {STL_SPACING} apart), overall {dr['overall']:.6f} (3-sigma "
+        f"bound {bound:.6f}); stages: sampling {ds_['sample_s']:.3f} s ({ds_['n_samples']} "
+        f"points), radius downsample {ds_['downsample_s']:.3f} s ({ds_['n_down']} points), KD "
+        f"queries {ds_['kd_s']:.3f} s")
+    check(ds_["n_samples"] <= 1_200_000, f"radius_downsample over {ds_['n_samples']} points")
+    check(-1e-6 <= dr["mean_d2s"] - chk["d2s"][0] <= STL_SPACING,
+          f"DTU mean_d2s {dr['mean_d2s']} vs analytic {chk['d2s'][0]}")
+    check(dr["overall"] < bound, f"DTU overall {dr['overall']} above {bound}")
+
+    (T, mr, ms), walls["evaluate_dtu_mesh"], _ = run_cli(evaluate_dtu_mesh, [
+        "-m", ep["m1"], "--DTU", dtu, "--scan_id", str(DTU_SCAN), "--mesh", culled, *dtu_args,
+        "--device", DEVICE],
+        "evaluate_dtu_mesh")
+    dev_T = float(np.abs(T - np.eye(4)).max())
+    log(f"phase 10c evaluate_dtu_mesh: Procrustes transform - I max {dev_T:.3e}; overall "
+        f"{mr['overall']:.6f} (eval_dtu {dr['overall']:.6f}); stages: sampling "
+        f"{ms['sample_s']:.3f} s, radius downsample {ms['downsample_s']:.3f} s, KD queries "
+        f"{ms['kd_s']:.3f} s")
+    check(dev_T < 1e-4, f"evaluate_dtu_mesh transform is not the identity: {T}")
+    log("phase 10c wall seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+
+
+def viewer_message(cam, keep_alive, scaling_modifier):
+    """The SIBR client's request for ``cam``: the column-major world_view with
+    its y / z columns negated (network_gui.py:73-76)."""
+    wv = cam.world_view.cpu().numpy().T.copy()
+    wv[:, 1] *= -1
+    wv[:, 2] *= -1
+    return {"resolution_x": cam.width, "resolution_y": cam.height, "train": True,
+            "fov_y": float(cam.fovy), "fov_x": float(cam.fovx), "z_near": cam.znear,
+            "z_far": cam.zfar, "shs_python": False, "rot_scale_python": False,
+            "keep_alive": keep_alive, "scaling_modifier": scaling_modifier,
+            "view_matrix": wv.reshape(-1).tolist(),
+            "view_projection_matrix": np.eye(4).reshape(-1).tolist()}
+
+
+def viewer_client(port, cam, n_alive, frames, errors):
+    """Connect (retrying until the CLI listens), request ``n_alive`` frames
+    with keep_alive and one without, keep each reply."""
+    import socket
+
+    def recv(s, n):
+        buf = b""
+        while len(buf) < n:
+            chunk = s.recv(n - len(buf))
+            check(len(chunk) > 0, "the viewer server closed the connection")
+            buf += chunk
+        return buf
+
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            try:
+                s = socket.create_connection(("127.0.0.1", port), timeout=300)
+                break
+            except ConnectionRefusedError:
+                check(time.monotonic() < deadline, "the train CLI never listened")
+                time.sleep(0.01)
+        with s:
+            for k in range(n_alive + 1):
+                payload = json.dumps(viewer_message(cam, k < n_alive, VIEWER_SCALE)).encode()
+                s.sendall(len(payload).to_bytes(4, "little") + payload)
+                img = recv(s, cam.width * cam.height * 3)
+                verify = recv(s, int.from_bytes(recv(s, 4), "little")).decode()
+                frames.append((time.perf_counter(), img, verify))
+    except Exception as e:  # raised in the main thread after the join
+        errors.append(e)
+
+
+def eval_viewer(ep):
+    """10d: the train CLI with --ip serving a client thread 320x240 frames."""
+    import socket
+    import threading
+
+    from radegs_torch.core.camera import Camera
+    from radegs_torch.renderer import render
+    from radegs_torch.scripts import train as train_cli
+    from radegs_torch.train.config import PipelineConfig
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    th = 2.0 * math.pi * 3 / DS_VIEWS
+    cam = Camera.look_at([5.0 * math.sin(th), 0.8, -5.0 * math.cos(th)], [0, 0, 0], [0, 1, 0],
+                         0.9, 0.7, VIEWER_W, VIEWER_H, device=DEVICE)
+    frames, errors = [], []
+    client = threading.Thread(target=viewer_client,
+                              args=(port, cam, VIEWER_ALIVE, frames, errors))
+    client.start()
+    m4 = os.path.join(ep["workdir"], "m4")
+    (ts, hist, _), wall, _ = run_cli(train_cli, [
+        "-s", ep["ds"], "-m", m4, "--iterations", str(VIEWER_ITERS), "--ip", "127.0.0.1",
+        "--port", str(port), "--log_every", "10", "--kernel_size", "0.1", "--device", DEVICE],
+        "train --ip")
+    client.join(timeout=120)
+    check(not client.is_alive() and not errors, f"viewer client: {errors}")
+    pcfg = PipelineConfig()
+    with torch.no_grad():
+        want = render(ts.gaussians, cam, torch.zeros(3, device=DEVICE), kernel_size=0.1,
+                      scaling_modifier=VIEWER_SCALE, max_per_tile=pcfg.max_per_tile,
+                      tiles_per_block=pcfg.tiles_per_block, device=DEVICE)["render"]
+    want = (np.clip(want.cpu().numpy(), 0, 1) * 255).astype(np.uint8).transpose(1, 2, 0)
+    gaps = np.diff([f[0] for f in frames])
+    log(f"phase 10d viewer: train --ip {VIEWER_ITERS} iterations in {wall:.3f} s; "
+        f"{len(frames)} frames of {VIEWER_W}x{VIEWER_H} served (median {np.median(gaps) * 1e3:.3f}"
+        f" ms apart); the last equals render of the final state at scaling modifier "
+        f"{VIEWER_SCALE}: {frames[-1][1] == want.tobytes()}; distinct frames "
+        f"{len({f[1] for f in frames})}")
+    check(len(frames) == VIEWER_ALIVE + 1 and all(f[2] == ep["ds"] for f in frames),
+          f"{len(frames)} frames, verify {frames[-1][2] if frames else None}")
+    check(frames[-1][1] == want.tobytes(), "the viewer's last frame differs from render")
+    check(len({f[1] for f in frames}) > 1, "every frame the same: none came during training")
+    check(len(hist) > 0 and hist[-1]["iteration"] == VIEWER_ITERS, "train --ip did not finish")
+
+
+def evaluation(ep):
+    """Phase 10: LPIPS on the card, the metrics CLI, the mesh evaluation CLIs
+    and the network viewer, on phase 8's outputs (launch counts set to 0
+    before and read after)."""
+    from radegs_torch.ops import blend
+    from radegs_torch.ops import integrate as ig
+
+    t0 = time.perf_counter()
+    blend.reset_launches()
+    ig.reset_launches()
+    eval_metrics(ep["m1"], ep["tpsnr"], eval_lpips(ep["workdir"], ep["m1"]))
+    eval_meshes(ep)
+    eval_viewer(ep)
+    launches = {**dict(blend.LAUNCHES), **dict(ig.LAUNCHES)}  # the phase 10 path ends here
+    g = default_g()
+    log(f"phase 10 kernel launches: {launches}; {time.perf_counter() - t0:.1f} s in all")
+    check(launches[f"blend_fwd[G={g}]"] > 0 and launches[f"blend_bwd[G={g}]"] > 0,
+          f"a blend kernel never ran on the phase 10 path: {launches}")
 
 
 # ------------------------------------------------------------ phase 9 ----
@@ -2959,6 +3407,11 @@ def main():
             tetra_only(tmp)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return
+    if sys.argv[1:] == ["--eval"]:
+        with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+            evaluation(entry_points(tmp, {"train_host_ms": float("nan")}))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return
     if sys.argv[1:] == ["--train100k"]:
         with tempfile.TemporaryDirectory(dir=workdir) as tmp:
             train_ab(tmp)
@@ -2971,7 +3424,8 @@ def main():
         res = full_scale(tmp)
         tr = training(res)
         mesh = mesh_path(res, tmp)
-        entry_points(tmp, tr)
+        ep = entry_points(tmp, tr)
+        evaluation(ep)
         probes = bisect_probes(res)
     kernels = []
     fwd = res["bwd"]["a"]["fwd"]

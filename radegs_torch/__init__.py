@@ -14,7 +14,10 @@ so each module's JAX original is found by name:
 - ``train``    — configuration, argument parsing, Adam and the single-card
                  training loop.
 - ``mesh``     — TSDF, Marching Tetrahedra, unbounded extraction, culling.
-- ``data``     — COLMAP / Blender readers and the ``Scene``.
+- ``data``     — COLMAP / Blender readers, the ``Scene`` and LLFF's
+                 ``poses_bounds.npy``.
+- ``eval``     — LPIPS on the card, the DTU and Tanks and Temples protocols.
+- ``viewer``   — the SIBR network viewer bridge (``train --ip``).
 - ``scripts``  — the command-line entry points (``python -m
                  radegs_torch.scripts.train`` and the others).
 - ``native``   — the nvcc build of the CUDA sources under ``csrc/``.

@@ -428,6 +428,34 @@ def get_tetra_points(state: GaussianState):
     return all_pts.astype(np.float32), all_scales.astype(np.float32)
 
 
+def get_truc_tetra_points(state: GaussianState, cameras, depth_truc: float):
+    """Depth-truncated tetra seeds (gaussian_model.py:431-493,
+    get_truc_tetra_points, which the reference never calls):
+    ``get_tetra_points`` over the Gaussians whose centre projects in front
+    of some camera at z in (0.2, ``depth_truc``) inside the image rectangle
+    padded by 15% of each side. The projection runs on the state's device.
+
+    Divergence, as in the JAX package: the reference slices by
+    ``valid_depth``, the mask of only the LAST camera of its loop, while it
+    accumulates a ``valid_points`` it never uses; the accumulated
+    any-camera mask is the evident intent and is what this uses."""
+    xyz = state.params.xyz
+    valid = torch.zeros(xyz.shape[0], dtype=torch.bool, device=xyz.device)
+    for cam in cameras:
+        W, H = cam.width, cam.height
+        R, T = cam.R.to(xyz.device), cam.T.to(xyz.device)
+        focal_x = W / (2.0 * torch.tan(cam.fovx.to(xyz.device) / 2.0))
+        focal_y = H / (2.0 * torch.tan(cam.fovy.to(xyz.device) / 2.0))
+        xyz_cam = xyz @ R + T[None, :]  # R.T @ p + T: R is camera-to-world
+        z = xyz_cam[:, 2]
+        zc = torch.clamp(z, min=0.001)
+        x = xyz_cam[:, 0] / zc * focal_x + W / 2.0
+        y = xyz_cam[:, 1] / zc * focal_y + H / 2.0
+        in_screen = (x >= -0.15 * W) & (x <= 1.15 * W) & (y >= -0.15 * H) & (y <= 1.15 * H)
+        valid |= (z > 0.2) & (z < depth_truc) & in_screen
+    return get_tetra_points(state.replace(active=state.active & valid))
+
+
 # ------------------------------------------------------------- PLY I/O ----
 
 

@@ -1,4 +1,6 @@
 """The port's command-line entry points, each runnable as
 ``python -m radegs_torch.scripts.<name>`` and importable as ``main(argv)``:
-``train``, ``render``, ``mesh_extract``, ``mesh_extract_tetrahedra`` and
-``kernel_bisect``. They run on ``cuda`` unless given ``--device cpu``."""
+``train``, ``render``, ``mesh_extract``, ``mesh_extract_tetrahedra``,
+``kernel_bisect``, and the evaluation's ``metrics``, ``cull_mesh``,
+``eval_tnt``, ``eval_dtu`` and ``evaluate_dtu_mesh``. Those that use the
+card run on ``cuda`` unless given ``--device cpu``."""

@@ -8,9 +8,13 @@ refreshes, test PSNR at ``--test_iterations``, PLY snapshots at
     python -m radegs_torch.scripts.train -s <dataset> -m <out_dir> [--eval] [flags]
     python -m radegs_torch.scripts.train --synthetic --iterations 300   # no dataset
     ... --device cpu                                                    # on the CPU
+    ... --ip 127.0.0.1 --port 6009                    # serve SIBR's remote viewer while training
 
-``--ip`` (the network viewer) and ``--multichip`` are not ported yet and
-raise ``NotImplementedError``.
+With ``--ip`` each iteration polls the network viewer (``viewer.NetworkGUI``):
+a connected viewer gets one frame per iteration, rendered on the card at
+its camera and scaling modifier, and after the last iteration frames until
+it sends ``keep_alive`` false. ``--multichip`` is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,8 +28,6 @@ import uuid
 import numpy as np
 import torch
 
-VIEWER_TODO = ("the network viewer (--ip, viewer/network_gui.py) is not ported yet: "
-               "ROADMAP.md queue A item 4 (eval and viewer)")
 MULTICHIP_TODO = ("multi-card training (--multichip, parallel/) is not ported yet: "
                   "ROADMAP.md queue A item 5 (parallel/ on torch.distributed)")
 
@@ -44,7 +46,8 @@ def build_parser():
     p.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
     p.add_argument("--start_checkpoint", type=str, default=None)
     p.add_argument("--quiet", action="store_true")
-    p.add_argument("--ip", type=str, default=None, help="network viewer host (not ported)")
+    p.add_argument("--ip", type=str, default=None,
+                   help="serve the SIBR network viewer on this host")
     p.add_argument("--port", type=int, default=6009)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log_every", type=int, default=50)
@@ -98,8 +101,6 @@ def main(argv=None):
     the test views} for the ``--test_iterations`` that ran (empty without
     test views)."""
     args = build_parser().parse_args(argv)
-    if args.ip:
-        raise NotImplementedError(VIEWER_TODO)
     if args.multichip:
         raise NotImplementedError(MULTICHIP_TODO)
 
@@ -206,9 +207,31 @@ def main(argv=None):
         resume_state, start_it = load_checkpoint(args.start_checkpoint, template)
         print(f"resumed from {args.start_checkpoint} at iteration {start_it}")
 
-    ts, history = train(scene, gaussians, mcfg, ocfg, pcfg, seed=args.seed,
-                        log_every=args.log_every, callbacks=(on_log, on_schedule),
-                        resume_state=resume_state, device=dev)
+    callbacks = [on_log, on_schedule]
+    gui = None
+    if args.ip:
+        from radegs_torch.viewer.network_gui import NetworkGUI
+
+        gui = NetworkGUI(args.ip, args.port, device=dev)
+
+        def on_gui(it, ts, metrics):
+            @torch.no_grad()
+            def render_view(cam, scaling_modifier):
+                return render(ts.gaussians, cam, bg, kernel_size=mcfg.kernel_size,
+                              scaling_modifier=scaling_modifier, max_per_tile=pcfg.max_per_tile,
+                              tiles_per_block=pcfg.tiles_per_block, device=dev)["render"]
+
+            gui.poll(render_view, mcfg.source_path or mcfg.model_path, it >= ocfg.iterations)
+
+        callbacks.append(on_gui)
+
+    try:
+        ts, history = train(scene, gaussians, mcfg, ocfg, pcfg, seed=args.seed,
+                            log_every=args.log_every, callbacks=tuple(callbacks),
+                            resume_state=resume_state, device=dev)
+    finally:
+        if gui is not None:
+            gui.close()
 
     it = int(ts.iteration)
     save_snapshot(mcfg.model_path, ts.gaussians, it)  # the final snapshot

@@ -7,8 +7,9 @@ f_rest_0..44,opacity,scale_0..2,rot_0..3,filter_3D — so PLYs round-trip with
 the reference tooling and any 3DGS viewer.
 
 The port's own copy of ``radegs_tpu/utils/ply.py`` (the reader and writer
-that the Gaussian PLY I/O needs, and the mesh writer / reader of the
-extractors), so ``radegs_torch`` imports nothing of the JAX package.
+that the Gaussian PLY I/O needs, the mesh writer / reader of the
+extractors and the point-cloud writer / reader of the evaluation), so
+``radegs_torch`` imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -132,6 +133,43 @@ def read_ply(path) -> Dict[str, np.ndarray]:
             dt = np.dtype([(p[0], "<" + _DTYPES[p[1]]) for p in props])
             out[name] = np.frombuffer(buf.read(dt.itemsize * count), dt).copy()
     return out
+
+
+def write_point_cloud(path, points: np.ndarray, colors: np.ndarray | None = None,
+                      normals: np.ndarray | None = None):
+    """A point cloud as a binary PLY: float x, y, z, then float nx, ny, nz
+    with ``normals`` and uchar red, green, blue with ``colors`` (floats in
+    [0, 1] scaled by 255)."""
+    fields = [("x", "f4"), ("y", "f4"), ("z", "f4")]
+    if normals is not None:
+        fields += [("nx", "f4"), ("ny", "f4"), ("nz", "f4")]
+    if colors is not None:
+        fields += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
+    arr = np.empty(len(points), dtype=fields)
+    arr["x"], arr["y"], arr["z"] = points[:, 0], points[:, 1], points[:, 2]
+    if normals is not None:
+        arr["nx"], arr["ny"], arr["nz"] = normals[:, 0], normals[:, 1], normals[:, 2]
+    if colors is not None:
+        c = np.clip(colors * 255 if colors.dtype.kind == "f" else colors, 0, 255).astype(np.uint8)
+        arr["red"], arr["green"], arr["blue"] = c[:, 0], c[:, 1], c[:, 2]
+    write_ply(path, {"vertex": arr})
+
+
+def read_point_cloud(path):
+    """(points (N, 3) float32, colors (N, 3) float32 in [0, 1] or None,
+    normals (N, 3) float32 or None) of a PLY's vertex element (a mesh's
+    vertices too)."""
+    v = read_ply(path)["vertex"]
+    pts = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float32)
+    colors = normals = None
+    names = v.dtype.names
+    if "red" in names:
+        colors = np.stack([v["red"], v["green"], v["blue"]], axis=1).astype(np.float32)
+        if colors.max() > 1.5:
+            colors /= 255.0
+    if "nx" in names:
+        normals = np.stack([v["nx"], v["ny"], v["nz"]], axis=1).astype(np.float32)
+    return pts, colors, normals
 
 
 def write_mesh(path, vertices: np.ndarray, faces: np.ndarray,
