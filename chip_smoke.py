@@ -169,6 +169,39 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
       the state the CLI returns at the same camera and scaling modifier,
       quantised the same way, and the CLI returns.
 
+11. Quality and soak at schedule, cut in depth (launch counts set to 0
+   before 11a and read after it: the quality path).
+   a. ``radegs_torch.scripts.quality_dense.main`` at full width: the
+      closed-form sphere + plane scene (``radegs_torch/scripts/synthetic.py``,
+      noise 0),
+      600k points, 16 orbit views (12 train / 4 test), 300 iterations
+      (cut from 30k: no densify, which starts at 500), evals at 1, 150 and
+      300, both meshes (TSDF at voxel 0.004, clamped to 768^3; tetra with
+      the 1-sigma seed dedup) scored against the analytic surfaces. Prints
+      it/s by bucket, the step's CUDA-event stage medians, peak memory,
+      each extractor's stage seconds and the launches of the blend and
+      integrate kernels. Fails unless the report is whole (not partial),
+      no NaN and no work dropped, test PSNR at 300 at least 1 dB above
+      that at 1, and each mesh has > 10k faces and ``overall`` < 0.05
+      (2.5x the training state's jitter sigma).
+   b. ``soak_dense.main`` at 600k points, 12 views, 400 iterations without
+      meshes: sustained it/s and rays/s over the last quarter, the final
+      capacity, peak memory. Fails unless the final PSNR is finite.
+   c. ``decimation_sweep.main`` at its own default scale (40k points,
+      400x300, 6 views), settings ``1.0`` and ``auto``:
+      seeds, Delaunay and SDF-pass seconds, and ``verts`` and ``overall``
+      beside ``DECIM_SWEEP_R4_CPU.json`` (the JAX record of the same seeds
+      and scale; a difference past 2% / 5% is printed as a finding, not
+      failed).
+
+``python3 chip_smoke.py --quality [WALL_BUDGET_S]`` runs only the setup and
+the JAX record's protocol at schedule (``QUALITY_r05.json``: 30k
+iterations, evals at 1000, 7000, 15000, 30000, 40 views with every 5th held
+out, 600k points), with a checkpoint at ``build/chip_smoke/q30k`` (saved at
+each eval and at the wall-budget cut, resumed from when it exists), both
+meshes at the end, then the sweep at full scale (600k points, 1600x1200,
+settings ``1.0``, ``auto``, ``3.0``; not ``full``, whose Delaunay takes
+~5.4M seeds). Reports go to ``build/chip_smoke/``.
 ``python3 chip_smoke.py --fwd [CSRC]`` runs only phase 2's forward checks
 and the forward at phase 5's three shapes, beside the forward kernel
 rebuilt from copies of its source with other constants (``FWD_VARIANTS``)
@@ -383,6 +416,31 @@ LONG_RUN = ([1000, 300, 1100, 2100, 4000, 5], [0, 50, 300, 400, 600, 8187])
 # the other depths of its ring
 WINDOW_VARIANTS = {f"S={k}": {"STAGES": k} for k in (2, 3, 4, 6, 12, 16)}
 
+# phase 11: the quality protocol (radegs_torch.scripts.quality_dense) at full
+# width with its depth cut: 600k points, 16 views (12 train / 4 test), 300
+# iterations (no densify: it starts at 500), both meshes
+QUALITY_CUT = ["--n_views", "16", "--eval_every", "4", "--iters", "300",
+               "--eval_iters", "1", "150", "300"]
+QUALITY_PSNR_GAIN = 1.0  # dB, the last eval's test PSNR over the eval at 1
+QUALITY_MIN_FACES = 10_000
+QUALITY_OVERALL_TOL = 0.05  # 2.5 x the training state's jitter sigma (0.02)
+# the soak at 600k points and 12 views: 400 iterations, so the last quarter's
+# rate is taken between two log points (300 and 400)
+SOAK_CUT = ["--n_views", "12", "--iters", "400"]
+# the sweep at its own default scale (40k points, 400x300, 6 views), beside
+# the JAX package's record of the same seeds and scale: "1.0" and "auto"
+# ("full" and "3.0" add ~50 s; --quality sweeps at 600k)
+SWEEP_SETTINGS = ["1.0", "auto"]
+SWEEP_RECORD = "DECIM_SWEEP_R4_CPU.json"
+SWEEP_VERTS_DIFF, SWEEP_OVERALL_DIFF = 0.02, 0.05  # a finding past these, not a gate
+# --quality: the JAX record's protocol at schedule (QUALITY_r05.json), then
+# the sweep at full scale (the JAX script's docstring command) without
+# "full" (its Delaunay of ~5.4M seeds)
+QUALITY_SCHEDULE = ["--iters", "30000", "--eval_iters", "1000", "7000", "15000", "30000",
+                    "--n_views", "40", "--eval_every", "5", "--n_points", "600000"]
+SWEEP_FULL_SCALE = ["--n_points", "600000", "--width", "1600", "--height", "1200",
+                    "--settings", "1.0", "auto", "3.0"]
+
 
 def default_g():
     """The tiles a block of the blend kernels that training and the CLIs use
@@ -416,20 +474,6 @@ def orbit_cameras(n, device):
     return cams
 
 
-def surface_points(n, rng, noise=1.0):
-    """bench.py _surface_points: a noisy sphere and a ground plane (radial
-    noise sigma 0.05 on the sphere, 0.02 on the plane, times ``noise``)."""
-    n_sphere = (2 * n) // 3
-    d = rng.normal(size=(n_sphere, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    sphere = d * (1.3 + noise * 0.05 * rng.normal(size=(n_sphere, 1)))
-    n_plane = n - n_sphere
-    plane = np.stack([rng.uniform(-3, 3, n_plane),
-                      np.full(n_plane, -1.4) + noise * 0.02 * rng.normal(size=n_plane),
-                      rng.uniform(-3, 3, n_plane)], axis=1)
-    return np.concatenate([sphere, plane], 0).astype(np.float32)
-
-
 def scene_ply(path, scene, seed=0):
     """Write the bench scene as a reference-format PLY with the port's
     save_gaussian_ply: points and colours from the seed, scales from the
@@ -439,6 +483,7 @@ def scene_ply(path, scene, seed=0):
 
     from radegs_torch.core.sh import rgb2sh
     from radegs_torch.models import gaussian_model as gm
+    from radegs_torch.scripts.synthetic import surface_points
 
     rng = np.random.default_rng(seed)
     if scene == "dense":
@@ -2044,6 +2089,7 @@ def integrate_alone(res, sdf_points=(), libs=None):
     from radegs_torch.ops import integrate as ig
     from radegs_torch.ops.binning import bin_gaussians, round_budget
     from radegs_torch.renderer import prepare
+    from radegs_torch.scripts.synthetic import surface_points
 
     dev = torch.device(DEVICE)
     views = mesh_views()
@@ -3197,6 +3243,153 @@ def probes_only(workdir, other):
     bisect_probes(dict(dpath=dpath, dcap=dcap, dbudget=round_budget(need)), other)
 
 
+# ----------------------------------------------------------- phase 11 ----
+
+
+def quality_cut(workdir):
+    """Phase 11a: ``quality_dense.main`` at full width with its depth cut
+    (launch counts set to 0 before and read after: the quality path)."""
+    from radegs_torch.ops import blend
+    from radegs_torch.ops import integrate as ig
+    from radegs_torch.scripts import quality_dense
+
+    t0 = time.perf_counter()
+    step_events = []
+    blend.reset_launches()  # the quality path starts here
+    ig.reset_launches()
+    rep = quality_dense.main([*QUALITY_CUT, "--report", os.path.join(workdir, "quality.json")],
+                             step_events=step_events)
+    launches = {**dict(blend.LAUNCHES), **dict(ig.LAUNCHES)}  # the quality path ends here
+    wall = time.perf_counter() - t0
+    ev, h = rep["eval"], rep["health"]
+    stages, _ = stage_medians(step_events)
+    log(f"phase 11a quality_dense {rep['resolution'][0]}x{rep['resolution'][1]}, "
+        f"{QUALITY_CUT}: {wall:.1f} s; test PSNR "
+        + ", ".join(f"{e['iter']}: {e['psnr_test']:.4f}" for e in ev)
+        + f" dB (train {ev[-1]['psnr_train']:.4f}); {rep['n_active_final']} splats, capacity "
+        f"{rep['capacity_final']}; health {h}")
+    log(f"phase 11a it/s by bucket {rep['it_per_s_by_1k']}, sustained "
+        f"{rep['sustained_it_per_s']:.3f} it/s (host clock), train {rep['train_wall_s']:.1f} s; "
+        "step stage medians (CUDA events, ms) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; peak memory {rep['device']['max_memory_allocated'] / 2**30:.3f} GiB")
+    for name in ("tsdf", "tetra"):
+        m = rep[name]
+        st = {k: (round(v, 3) if isinstance(v, float) else
+                  [round(x, 3) for x in v] if isinstance(v, list) else v)
+              for k, v in m["stats"].items()}
+        log(f"phase 11a {name}: {m['wall_s']:.1f} s, {m['verts']} vertices, {m['faces']} faces; "
+            f"accuracy {m['accuracy_mean']:.5f}, completeness {m['completeness_mean']:.5f}, "
+            f"overall {m['overall']:.5f}; stages {st}")
+    log(f"phase 11a kernel launches: {launches}")
+    check(not rep["partial"], "phase 11a: the report says partial")
+    check(h["nan_events"] == 0 and h["overflow_events"] == 0, f"phase 11a: health {h}")
+    check(ev[-1]["psnr_test"] >= ev[0]["psnr_test"] + QUALITY_PSNR_GAIN,
+          f"phase 11a: test PSNR {ev[0]['psnr_test']:.3f} -> {ev[-1]['psnr_test']:.3f} dB")
+    for name in ("tsdf", "tetra"):
+        m = rep[name]
+        check(m["faces"] > QUALITY_MIN_FACES and m["overall"] < QUALITY_OVERALL_TOL,
+              f"phase 11a {name}: {m['faces']} faces, overall {m['overall']:.5f}")
+    g = default_g()
+    check(all(launches[k] > 0 for k in (f"blend_fwd[G={g}]", f"blend_bwd[G={g}]",
+                                       "integrate_image", "integrate_points")),
+          f"a kernel never ran on the quality path: {launches}")
+    return {"report": rep, "launches": launches, "stages": stages, "wall_s": wall}
+
+
+def soak_cut(workdir):
+    """Phase 11b: ``soak_dense.main`` at 600k points, no meshes."""
+    from radegs_torch.scripts import soak_dense
+
+    t0 = time.perf_counter()
+    rep = soak_dense.main([*SOAK_CUT, "--report", os.path.join(workdir, "soak.json")])
+    log(f"phase 11b soak_dense {SOAK_CUT}: {time.perf_counter() - t0:.1f} s; sustained "
+        f"{rep['sustained_it_per_s']:.4f} it/s, {rep['sustained_rays_per_s']:.1f} rays/s "
+        f"(host clock); final PSNR {rep['final_psnr']:.4f} dB, {rep['final_instances']:.0f} "
+        f"instances; {rep['n_active_final']} splats, capacity {rep['capacity_final']}; peak "
+        f"memory {rep['device']['max_memory_allocated'] / 2**30:.3f} GiB")
+    check(math.isfinite(rep["final_psnr"]) and math.isfinite(rep["final_instances"]),
+          f"phase 11b: final PSNR {rep['final_psnr']}, instances {rep['final_instances']}")
+    return rep
+
+
+def sweep(workdir, argv, label, record=None):
+    """``decimation_sweep.main`` with each setting's seeds, Delaunay and
+    SDF-pass seconds; beside ``record`` (a JAX report of the same seeds and
+    scale) the vertex counts and overall scores (a finding past
+    SWEEP_VERTS_DIFF / SWEEP_OVERALL_DIFF, not a gate)."""
+    from radegs_torch.scripts import decimation_sweep
+
+    t0 = time.perf_counter()
+    stats = {}
+    name = re.sub(r"\W+", "_", label).strip("_")
+    rep = decimation_sweep.main([*argv, "--report", os.path.join(workdir, f"{name}.json")],
+                                stats=stats)
+    log(f"{label} decimation_sweep {rep['n_points']} points {rep['resolution']} "
+        f"{rep['n_views']} views: {time.perf_counter() - t0:.1f} s; sigma_median "
+        f"{rep['sigma_median']:.6g}")
+    old = {r["setting"]: r for r in record["results"]} if record else {}
+    for r in rep["results"]:
+        st = stats[r["setting"]]
+        line = (f"  {r['setting']}: voxel {r['decimate_voxel']}, seeds {st['n_seeds']} -> "
+                f"{st['n_seeds_decimated']}, Delaunay {st['delaunay_s']:.1f} s, SDF passes "
+                f"{sum(st['sdf_pass_s']):.1f} s, wall {r['wall_s']} s; {r['verts']} vertices, "
+                f"overall {r['overall']:.6f} (accuracy {r['accuracy_mean']:.6f}, completeness "
+                f"{r['completeness_mean']:.6f})")
+        if r["setting"] in old:
+            o = old[r["setting"]]
+            dv = (r["verts"] - o["verts"]) / o["verts"]
+            do = (r["overall"] - o["overall"]) / o["overall"]
+            far = abs(dv) > SWEEP_VERTS_DIFF or abs(do) > SWEEP_OVERALL_DIFF
+            line += (f"; record {o['verts']} vertices ({dv:+.2%}), overall {o['overall']:.6f} "
+                     f"({do:+.2%}){' FINDING: past 2% / 5%' if far else ''}")
+        log(line)
+        check(r["verts"] > 0 and math.isfinite(r["overall"]), f"{label} {r['setting']}: {r}")
+    return rep, stats
+
+
+def quality(workdir):
+    """Phase 11: the quality protocol with its depth cut, the soak and the
+    decimation sweep beside the JAX record."""
+    t0 = time.perf_counter()
+    q = quality_cut(workdir)
+    soak_cut(workdir)
+    with open(os.path.join(ROOT, SWEEP_RECORD)) as f:
+        record = json.load(f)
+    sweep(workdir, ["--settings", *SWEEP_SETTINGS], "phase 11c", record)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s in all")
+    return q
+
+
+def quality_schedule(workdir, wall_budget):
+    """--quality: the JAX record's protocol at schedule, resumed from
+    ``build/chip_smoke/q30k`` when it exists (the report says which), meshes
+    at the end, then the sweep at full scale."""
+    from radegs_torch.scripts import quality_dense
+
+    t0 = time.perf_counter()
+    argv = [*QUALITY_SCHEDULE, "--checkpoint", os.path.join(workdir, "q30k"),
+            "--report", os.path.join(workdir, "quality_schedule.json")]
+    if wall_budget is not None:
+        argv += ["--wall_budget", str(wall_budget)]
+    rep = quality_dense.main(argv)
+    log(f"--quality: {time.perf_counter() - t0:.1f} s; iterations {rep['iters_completed']} of "
+        f"{rep['iters']} (partial {rep['partial']}, recovered {rep['recovered_from_checkpoint']})"
+        f"; test PSNR " + ", ".join(f"{e['iter']}: {e['psnr_test']:.4f}" for e in rep["eval"])
+        + f" dB; health {rep['health']}; sustained {rep['sustained_it_per_s']} it/s; "
+        f"by bucket {rep['it_per_s_by_1k']}; {rep['n_active_final']} splats, capacity "
+        f"{rep['capacity_final']}; peak memory "
+        f"{rep['device']['max_memory_allocated'] / 2**30:.3f} GiB")
+    for name in ("tsdf", "tetra"):
+        m = rep[name]
+        log(f"--quality {name}: {m['wall_s']:.1f} s, {m['verts']} vertices, {m['faces']} faces,"
+            f" overall {m['overall']:.6f} (accuracy {m['accuracy_mean']:.6f}, completeness "
+            f"{m['completeness_mean']:.6f}); stages {m['stats']}")
+    check(rep["health"]["nan_events"] == 0, f"--quality: health {rep['health']}")
+    sweep(workdir, SWEEP_FULL_SCALE, "--quality sweep")
+    log(f"--quality: {time.perf_counter() - t0:.1f} s in all")
+
+
 def profile_serving(workdir):
     """``--profile``: torch.profiler over 3 views of the 100k scene and 1 of
     the dense scene; prints the device time by operation and the device's
@@ -3412,6 +3605,10 @@ def main():
             evaluation(entry_points(tmp, {"train_host_ms": float("nan")}))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return
+    if sys.argv[1:2] == ["--quality"]:
+        quality_schedule(workdir, float(sys.argv[2]) if len(sys.argv) > 2 else None)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return
     if sys.argv[1:] == ["--train100k"]:
         with tempfile.TemporaryDirectory(dir=workdir) as tmp:
             train_ab(tmp)
@@ -3427,6 +3624,7 @@ def main():
         ep = entry_points(tmp, tr)
         evaluation(ep)
         probes = bisect_probes(res)
+        qual = quality(tmp)
     kernels = []
     fwd = res["bwd"]["a"]["fwd"]
     for g, replaces in ((1, "radegs_tpu/ops/pallas_blend.py:263"),
@@ -3479,6 +3677,8 @@ def main():
             "bound_by": row["bound"][1], "library_ms": row["library_ms"],
             "floor_ms": row["floor_ms"],
         })
+    for k in kernels:  # launches on phase 11a's quality path
+        k["quality_launches"] = qual["launches"].get(k["name"], 0)
     log(f"backward kernel vs plain, max rel err per field over phases 2 and 5: "
         f"{max([p[2] for p in parity] + [v['rel'] for v in bwd.values()]):.3e}; vs the "
         f"reference renderer {res['ref_rel']:.3e}")

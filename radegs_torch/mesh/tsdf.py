@@ -149,7 +149,9 @@ def fuse_tsdf(depth_maps, voxel_size=0.002, trunc_multiplier=8.0, depth_max=8.0,
     ``tsdf_to_mesh``'s validity mask. ``io_dtype``: "f16" brings the fused
     values to the host as float16 (sdf is in [-1, 1]; ~3 decimal digits, far
     below the voxel discretisation), "f32" as they are. ``stats``: a dict
-    that receives the seconds of block marking ("mark") and fusion ("fuse").
+    that receives the seconds of block marking ("mark") and fusion ("fuse"),
+    the active block count and the voxel size used after the
+    ``max_resolution`` clamp ("voxel_size").
 
     Returns host numpy (tsdf (Z, Y, X), weight (Z, Y, X), origin (3,),
     voxel_size)."""
@@ -215,7 +217,8 @@ def fuse_tsdf(depth_maps, voxel_size=0.002, trunc_multiplier=8.0, depth_max=8.0,
     tsdf = tsdf6.transpose(0, 3, 1, 4, 2, 5).reshape(BZ * block, BY * block, BX * block)
     weight = weight6.transpose(0, 3, 1, 4, 2, 5).reshape(BZ * block, BY * block, BX * block)
     if stats is not None:
-        stats.update(mark=t_fuse - t_mark, fuse=time.perf_counter() - t_fuse, active_blocks=NB)
+        stats.update(mark=t_fuse - t_mark, fuse=time.perf_counter() - t_fuse, active_blocks=NB,
+                     voxel_size=voxel_size)
     return tsdf[:Z, :Y, :X], weight[:Z, :Y, :X], np.asarray(lo, np.float32), voxel_size
 
 
@@ -274,7 +277,8 @@ def extract_mesh_tsdf(state, views, kernel_size, bg, voxel_size=0.002, out_path=
     (default ``cuda``; the state must already live there). Returns (verts,
     faces) as host numpy and optionally writes ``out_path``. ``stats``: a
     dict that receives the seconds of the depth maps ("depth_maps"), block
-    marking ("mark"), fusion ("fuse") and meshing ("mesh")."""
+    marking ("mark"), fusion ("fuse") and meshing ("mesh"), and the voxel
+    size used ("voxel_size")."""
     t0 = time.perf_counter()
     maps = render_depth_maps(state, views, kernel_size, bg, max_per_tile=max_per_tile,
                              gt_masks=gt_masks, device=device)

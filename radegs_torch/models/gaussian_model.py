@@ -185,6 +185,18 @@ def update_3d_filter(state: GaussianState, cameras) -> GaussianState:
     return state.replace(filter_3d=torch.where(state.active[:, None], f, 0.0))
 
 
+def update_3d_filter_partial(state: GaussianState, cameras, new_mask) -> GaussianState:
+    """Masked Mip-filter refresh for newly added points
+    (scene/gaussian_model.py:235-293, compute_partial_3D_filter; dead code in
+    the reference, ported for completeness): rows under ``new_mask`` (C,)
+    get the recomputed filter, the other active rows keep theirs, inactive
+    rows get 0."""
+    f = compute_3d_filter(state.params.xyz, cameras)
+    new_mask = torch.as_tensor(new_mask, dtype=torch.bool, device=state.device)
+    upd = torch.where(new_mask[:, None], f, state.filter_3d)
+    return state.replace(filter_3d=torch.where(state.active[:, None], upd, 0.0))
+
+
 def inverse_sigmoid(x):
     return torch.log(x / (1.0 - x))
 

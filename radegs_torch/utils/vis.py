@@ -1,5 +1,6 @@
 """Visualisation helpers (port of ``radegs_tpu/utils/vis.py``; reference
-utils/vis_utils.py): depth colormaps, in numpy."""
+utils/vis_utils.py): depth colormaps, normal-map colours and a coloured
+point-cloud dump, in numpy."""
 
 from __future__ import annotations
 
@@ -40,3 +41,15 @@ def apply_depth_colormap(depth, accumulation=None, near_plane=None, far_plane=No
         img = img * a + (1.0 - a)
     return img
 
+
+def normal_to_rgb(normal_chw):
+    """(3,H,W) unit normals -> (H,W,3) colors in [0,1]."""
+    n = np.asarray(normal_chw, np.float32).transpose(1, 2, 0)
+    return np.clip(n * 0.5 + 0.5, 0.0, 1.0)
+
+
+def save_points_ply(path, points, colors=None):
+    """Colored point-cloud dump (utils/vis_utils.py:50-69)."""
+    from radegs_torch.utils.ply import write_point_cloud
+
+    write_point_cloud(path, np.asarray(points, np.float32), colors)
