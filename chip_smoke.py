@@ -193,6 +193,24 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
       beside ``DECIM_SWEEP_R4_CPU.json`` (the JAX record of the same seeds
       and scale; a difference past 2% / 5% is printed as a finding, not
       failed).
+12. Multi-rank training (``radegs_torch/parallel``) on phase 6's 100k
+   training scene (launch counts set to 0 before and read after, on every
+   rank). a. World 1 under NCCL in this process: one multi-rank step of
+   view 0 against the single-rank step from the same state (the Adam first
+   moments, 0.1 g from zero moments, and the two screen-gradient statistics
+   within 1e-4 x max |.| of each; the loss within rel 1e-5), and both
+   steps timed in turns. b. World 2 under gloo, both ranks on card 0 (NCCL
+   lets no two ranks share a card; the collectives stage through host
+   memory): two bands of 38 tile rows (1216 padded rows), the same gates,
+   and on every rank of (a) and (b) B3 and B4 fed that rank's band (its
+   binning of the gathered rows, the full image's ``ndc_size``) held to
+   their plain versions (forward ABS_TOL, backward 1e-4 x max |plain|),
+   then 20 iterations of ``train(mesh=)`` with one densify (at 10): loss
+   finite and falling, no gather overflow at the end, the blend kernels at
+   G = 2 launched on both ranks. Prints ``n_vis``, ``gather_rows``,
+   ``full_gather_rows`` and the ms per iteration of the 2 ranks
+   time-sharing one card (no scaling figure). The kernels line gives each
+   kernel's launches there as ``parallel_launches`` (summed over ranks).
 
 ``python3 chip_smoke.py --quality [WALL_BUDGET_S]`` runs only the setup and
 the JAX record's protocol at schedule (``QUALITY_r05.json``: 30k
@@ -202,6 +220,14 @@ each eval and at the wall-budget cut, resumed from when it exists), both
 meshes at the end, then the sweep at full scale (600k points, 1600x1200,
 settings ``1.0``, ``auto``, ``3.0``; not ``full``, whose Delaunay takes
 ~5.4M seeds). Reports go to ``build/chip_smoke/``.
+``python3 chip_smoke.py --parallel`` runs only the setup, phase 12 (writing
+its own 100k scene), ``stress_mesh_growth`` at world 2 (gloo, one card) to its
+default target of 1M Gaussians, held to the single-rank loop, and
+``bench_scaling`` at worlds 1 and 2 (``--zoom``; world 2 time-shares the
+card). The stress report goes to ``build/chip_smoke/``.
+``python3 chip_smoke.py --nccl``, on a machine with several cards, runs only
+the setup, phase 12 with 12b at one rank a card under NCCL, and
+``bench_scaling`` at each power of two up to the card count.
 ``python3 chip_smoke.py --fwd [CSRC]`` runs only phase 2's forward checks
 and the forward at phase 5's three shapes, beside the forward kernel
 rebuilt from copies of its source with other constants (``FWD_VARIANTS``)
@@ -440,6 +466,21 @@ QUALITY_SCHEDULE = ["--iters", "30000", "--eval_iters", "1000", "7000", "15000",
                     "--n_views", "40", "--eval_every", "5", "--n_points", "600000"]
 SWEEP_FULL_SCALE = ["--n_points", "600000", "--width", "1600", "--height", "1200",
                     "--settings", "1.0", "auto", "3.0"]
+# phase 12: multi-rank training on phase 6's 100k scene. One densify (at 10)
+# and no opacity reset in PAR_ITERS iterations, the depth-normal term from 5
+PAR_ITERS = 20
+PAR_OCFG = dict(iterations=PAR_ITERS, densify_from_iter=5, densification_interval=10,
+                densify_until_iter=15, opacity_reset_interval=1000, regularization_from_iter=5,
+                position_lr_max_steps=PAR_ITERS)
+PAR_DENSIFY_AT = 9  # the history's index of iteration 10
+PAR_REG_ITER = 10  # the one-step gates start from this iteration (the depth-normal term on)
+# the gates against the single-rank step: the Adam first moments after one
+# step from zero moments (0.1 g: no sign flips of Adam's update to hide a
+# difference) and the screen-gradient statistics within PAR_M1_TOL x max |.|
+# of each; the loss within PAR_LOSS_REL
+PAR_M1_TOL, PAR_LOSS_REL = 1e-4, 1e-5
+PAR_TIMEOUT_S = 600  # the ranks' run and each collective
+PAR_TIMED_STEPS = 5
 
 
 def default_g():
@@ -3525,6 +3566,340 @@ def integrate_only(workdir, other):
         f"{max(p[0] for p in parity):.3e}")
 
 
+# ----------------------------------------------------------- phase 12 ----
+
+
+def parallel_scene(workdir, res=None):
+    """Phase 12's scene: phase 6's 100k training scene (8 views at
+    1600x1200 rendered from the 100k scene, ``create_from_points`` of its
+    jittered centres, capacity 131072, SH 3) with its 3D filter, saved for
+    the ranks. Returns (path of the saved scene, the scene, the state)."""
+    from radegs_torch.models import gaussian_model as gm
+
+    dev = torch.device(DEVICE)
+    if res is None:
+        path, cap, cams, budget = os.path.join(workdir, "scene100k.ply"), None, None, None
+        cap = scene_ply(path, "100k")
+        cams = orbit_cameras(N_VIEWS, dev)
+    else:
+        path, cap, cams, budget = res["path"], res["cap"], res["cams"], res["budget"]
+    scene, g0, _ = training_scene(path, cap, cams, budget)
+    g0 = gm.update_3d_filter(g0, cams)
+    saved = os.path.join(workdir, "parallel_scene.pt")
+    torch.save({"gaussians": gm.per_slot(g0, lambda x: x.cpu()),
+                "gts": [gt.cpu() for _, gt, _ in scene.cameras], "extent": scene.extent},
+               saved)
+    return saved, scene, g0
+
+
+def load_parallel_scene(saved, dev):
+    """The saved phase-12 scene on ``dev``: (SceneLike, initial state)."""
+    from radegs_torch.models import gaussian_model as gm
+    from radegs_torch.train.loop import SceneLike
+
+    data = torch.load(saved, weights_only=False)
+    cams = orbit_cameras(N_VIEWS, dev)
+    scene = SceneLike(cameras=[(c, gt.to(dev), i) for i, (c, gt) in
+                               enumerate(zip(cams, data["gts"]))], extent=data["extent"])
+    return scene, gm.per_slot(data["gaussians"], lambda x: x.to(dev))
+
+
+def parallel_configs(pcfg):
+    from radegs_torch.train.config import ModelConfig, OptimizationConfig
+
+    return ModelConfig(**TRAIN_MCFG), OptimizationConfig(**PAR_OCFG), pcfg
+
+
+@contextlib.contextmanager
+def band_inputs():
+    """Record what the multi-rank step hands ``rasterize`` while the block
+    runs: [(the gathered rows with band-local xy, the band's arguments)]."""
+    from radegs_torch.parallel import step as pstep
+
+    seen, inner = [], pstep.rasterize
+
+    def spy(prep, camera, bg, **kw):
+        seen.append((prep, kw))
+        return inner(prep, camera, bg, **kw)
+
+    pstep.rasterize = spy
+    try:
+        yield seen
+    finally:
+        pstep.rasterize = inner
+
+
+def band_kernels(prep, kw, label):
+    """B3 and B4 on one rank's band as the multi-rank step feeds them: the
+    band's binning of the gathered rows at the band's width and height and
+    the GOF statistic at the full image's NDC scale (``ndc_size``), against
+    the plain forward (ABS_TOL; med_pos flips <= MED_POS_TOL) and
+    ``blend_backward_torch(ndc_size=)`` (each field within BWD_REL_TOL x
+    max |plain|), with seeded cotangents. Returns (forward max abs error,
+    backward worst relative error)."""
+    from radegs_torch.ops import blend
+    from radegs_torch.ops.rasterize import bin_prep, blend_inputs
+
+    W, H, g = kw["render_width"], kw["render_height"], kw["tiles_per_block"]
+    ndc = (WIDTH, HEIGHT)
+    with torch.no_grad():
+        binning = bin_prep(prep, W, H, kw["instance_budget"], kw["max_per_tile"],
+                           need_tile_gauss=True)
+        inputs = tuple(x.detach() for x in blend_inputs(prep))
+        fwd = blend.blend_forward(binning, inputs, W, H, tiles_per_block=g)
+        err, flips, med_err = compare(fwd, blend.blend_forward_torch(binning.tile_gauss, inputs,
+                                                                     W, H))
+        cot = random_cotangents(fwd, 12)
+        grads = blend.blend_backward(binning, inputs, fwd, cot, W, H, tiles_per_block=g,
+                                     ndc_size=ndc)
+        errs = compare_grads(grads, blend.blend_backward_torch(binning.tile_gauss, inputs, fwd,
+                                                               cot, W, H, ndc_size=ndc))
+    torch.cuda.synchronize()
+    worst = max(r for _, r in errs.values())
+    log(f"{label}: {W}x{H} rows from global row {kw['band_row0']}, ndc_size {ndc}, "
+        f"n_instances {int(binning.n_instances)} (overflow {int(binning.n_overflow)} / "
+        f"{int(binning.tile_overflow)}); blend_fwd[G={g}] vs plain max abs err {err:.3e}, "
+        f"med_pos flips {flips:.3e}, med_t/med_coord err {med_err:.3e}; blend_bwd[G={g}] vs "
+        "plain per field abs / rel to max |plain|: "
+        + ", ".join(f"{k} {a:.3e} / {r:.3e}" for k, (a, r) in errs.items()))
+    check(int(binning.n_overflow) == 0 and int(binning.tile_overflow) == 0,
+          f"{label}: the band's binning overflowed")
+    check(err <= ABS_TOL and med_err <= ABS_TOL, f"{label}: forward vs plain {err}, {med_err}")
+    check(flips <= MED_POS_TOL, f"{label}: med_pos flips {flips}")
+    check(worst <= BWD_REL_TOL, f"{label}: backward vs plain rel err {worst}")
+    return max(err, med_err), worst
+
+
+def one_sharded_step(mesh, scene, g0, pcfg, label):
+    """One multi-rank step of view 0 from ``g0`` (depth-normal term on),
+    then ``band_kernels`` on the band this rank rendered in it: (metrics,
+    the canonical first moments and screen-gradient statistics {name:
+    tensor}, the step's launches, the band check's errors)."""
+    from radegs_torch import parallel as par
+    from radegs_torch.ops import blend
+    from radegs_torch.train.loop import TrainState
+
+    mcfg, ocfg, pcfg = parallel_configs(pcfg)
+    cam, gt, _ = scene.cameras[0]
+    n = mesh.world
+    ts = par.shard_train_state(TrainState(gaussians=par.to_strided(g0, n),
+                                          iteration=PAR_REG_ITER), mesh)
+    step = par.make_sharded_train_step(mcfg, ocfg, pcfg, scene.extent, mesh, WIDTH, HEIGHT)
+    gt_p = par.pad_gt(gt, par.band_layout(HEIGHT, n)[2])
+    bg = torch.zeros(3, device=mesh.device)
+    blend.reset_launches()
+    with band_inputs() as seen:
+        ts, met = step(ts, cam, gt_p, bg, 0)
+    torch.cuda.synchronize()
+    launches = dict(blend.LAUNCHES)
+    (prep, kw), = seen
+    band = band_kernels(prep, kw, f"{label} rank {mesh.rank} band")
+    g = par.to_canonical(par.gather_gaussian_state(ts.gaussians, mesh), n)
+    return ({k: float(v) for k, v in met.items()}, gate_fields(g), launches, band)
+
+
+def gate_fields(g):
+    """What phase 12 holds to the single-rank step: the first moment of each
+    parameter group and the two screen-gradient statistics (the GOF one
+    scaled by the full image's size, also in a band)."""
+    return {**{f"m_{k}": v for k, v in g.adam_m.items()},
+            "grad_accum": g.grad_accum, "grad_abs_accum": g.grad_abs_accum}
+
+
+def rank_phase12(mesh, saved, pcfg):
+    """Phase 12b on one rank: one step for the gates, then ``train(mesh=)``
+    for PAR_ITERS iterations with the launch counts set to 0 just before."""
+    from radegs_torch.ops import blend
+    from radegs_torch.train.loop import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scene, g0 = load_parallel_scene(saved, mesh.device)
+    met, gate, step_launches, band = one_sharded_step(mesh, scene, g0, pcfg,
+                                                      f"phase 12b world {mesh.world}")
+    gate = {k: v.cpu() for k, v in gate.items()} if mesh.rank == 0 else None
+    stamps = []
+    blend.reset_launches()  # the multi-rank training path starts here
+    t0 = time.perf_counter()
+    ts, hist = train(scene, g0, *parallel_configs(pcfg), seed=0, log_every=1, mesh=mesh,
+                     device=mesh.device,
+                     callbacks=[lambda it, ts, m: stamps.append(time.perf_counter())])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(blend.LAUNCHES)  # ... and ends here
+    finite = all(bool(torch.isfinite(p).all()) for _, p in ts.gaussians.params.items())
+    return dict(step=met, gate=gate, step_launches=step_launches, band=band,
+                backend=mesh.backend, hist=hist, launches=launches,
+                wall=wall, host_ms=1e3 * float(np.median(np.diff(stamps))), finite=finite,
+                n_active=int(ts.gaussians.n_active()), capacity=ts.gaussians.capacity)
+
+
+def gates_agree(m, ref, label):
+    """The gate of ``gate_fields``: each within PAR_M1_TOL x its max |.| in
+    the single-rank step; returns the worst ratio."""
+    worst = 0.0
+    for k, r in ref.items():
+        err = float((m[k].to(r.device) - r).abs().max())
+        scale = float(r.abs().max())
+        check(err <= PAR_M1_TOL * scale, f"{label}: {k} off by {err:.3e} (max |.| "
+              f"{scale:.3e})")
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+def parallel_training(workdir, res=None, world=2, device="cuda:0"):
+    """Phase 12: multi-rank training on the card. (a) World 1 under NCCL in
+    this process: one multi-rank step against the single-rank step (first
+    moments and statistics within PAR_M1_TOL x max |.|, loss within
+    PAR_LOSS_REL). (b) World 2 under gloo, both ranks on card 0 (two bands
+    of 38 tile rows, 1216 padded rows): the same gates, then PAR_ITERS
+    iterations of ``train(mesh=)`` with one densify; the blend kernels at
+    G = 2 must launch on every rank. In (a) and on every rank of (b), B3
+    and B4 on the rank's band are held to their plain versions
+    (``band_kernels``). ``world`` / ``device`` set (b)'s ranks, their
+    backend ``parallel.default_backend``'s (``--nccl``: a card a rank,
+    NCCL)."""
+    import torch.distributed as dist
+
+    from radegs_torch import parallel as par
+    from radegs_torch.ops.binning import round_budget
+    from radegs_torch.renderer import render
+    from radegs_torch.train.config import PipelineConfig
+    from radegs_torch.train.loop import TrainState, make_train_step
+
+    t_start = time.perf_counter()
+    g = default_g()
+    saved, scene, g0 = parallel_scene(workdir, res)
+    cam, gt, _ = scene.cameras[0]
+    with torch.no_grad():  # the step's work buffers from view 0's demand
+        b = render(g0, cam, [0.0, 0.0, 0.0], kernel_size=0.1, device=DEVICE)["binning"]
+    # twice the demand: each band's budget is half of it, enough for any split
+    pcfg = PipelineConfig(instance_budget=round_budget(2 * int(b.n_instances)),
+                          max_per_tile=max(512, 1 << (2 * int(b.max_tile_count) - 1).bit_length()))
+    mcfg, ocfg, _ = parallel_configs(pcfg)
+    ref_step = make_train_step(mcfg, ocfg, pcfg, spatial_lr_scale=scene.extent)
+    ts_ref, m_ref = ref_step(TrainState(gaussians=g0, iteration=PAR_REG_ITER), cam, gt,
+                             torch.zeros(3, device=DEVICE), 0, WIDTH, HEIGHT)
+    loss_ref = float(m_ref["loss"])
+    check(int(m_ref["n_overflow"]) == 0 and int(m_ref["tile_overflow"]) == 0,
+          f"phase 12 single-rank step overflowed: {m_ref}")
+    gate_ref = gate_fields(ts_ref.gaussians)
+    del ts_ref
+
+    # ---- 12a: world 1, NCCL, in this process ----
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(workdir, "pg12a"),
+                            rank=0, world_size=1)
+    try:
+        mesh = par.make_mesh_1d()
+        met1, gate1, launches1, band1 = one_sharded_step(mesh, scene, g0, pcfg,
+                                                         "phase 12a world 1")
+        # the multi-rank machinery's own cost: world-1 steps against
+        # single-rank steps from the same state, in turns
+        w1_step = par.make_sharded_train_step(mcfg, ocfg, pcfg, scene.extent, mesh, WIDTH,
+                                              HEIGHT)
+        gt_p = par.pad_gt(gt, par.band_layout(HEIGHT, 1)[2])
+        bg = torch.zeros(3, device=DEVICE)
+        calls = {
+            "single rank": lambda ts: ref_step(ts, cam, gt, bg, 0, WIDTH, HEIGHT),
+            "world 1": lambda ts: w1_step(ts, cam, gt_p, bg, 0)}
+        step_ms = {k: [] for k in calls}
+        for _ in range(PAR_TIMED_STEPS):
+            for name, call in calls.items():
+                ts = TrainState(gaussians=g0, iteration=PAR_REG_ITER)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call(ts)
+                torch.cuda.synchronize()
+                step_ms[name].append(1e3 * (time.perf_counter() - t0))
+    finally:
+        dist.destroy_process_group()
+    step_ms = {k: float(np.median(v)) for k, v in step_ms.items()}
+    w1 = gates_agree(gate1, gate_ref, "phase 12a world 1")
+    rel1 = abs(met1["loss"] - loss_ref) / abs(loss_ref)
+    check(rel1 <= PAR_LOSS_REL, f"phase 12a loss {met1['loss']} vs {loss_ref}")
+    check(launches1[f"blend_fwd[G={g}]"] == 1 and launches1[f"blend_bwd[G={g}]"] == 1,
+          f"phase 12a launches {launches1}")
+    log(f"phase 12a world 1 (nccl): loss {met1['loss']:.7f} vs single rank {loss_ref:.7f} "
+        f"(rel {rel1:.2e}); first moments and screen-gradient statistics worst {w1:.2e} of "
+        f"max |.|; B3 / B4 on its band vs plain: forward {band1[0]:.3e} abs, backward "
+        f"{band1[1]:.3e} of max |plain|; n_vis {met1['n_vis']:.0f}, gather_rows {met1['gather_rows']:.0f}, full_gather_rows "
+        f"{met1['full_gather_rows']:.0f}; launches {launches1}; one step of view 0, median of "
+        f"{PAR_TIMED_STEPS} in turns (host clock): single rank {step_ms['single rank']:.3f} ms, "
+        f"world 1 {step_ms['world 1']:.3f} ms")
+    del gate1
+
+    # ---- 12b: world 2, gloo, both ranks on card 0 ----
+    _, band_px, h_pad = par.band_layout(HEIGHT, world)
+    sharing = (f"{world} ranks time-sharing one card" if device == "cuda:0" and world > 1
+               else "a card a rank")
+    outs = par.run_ranks(rank_phase12, world, device=device, timeout_s=PAR_TIMEOUT_S,
+                         args=(saved, pcfg))
+    r0 = outs[0].result
+    backend = r0["backend"]
+    w2 = gates_agree(r0["gate"], gate_ref, f"phase 12b world {world}")
+    rel2 = abs(r0["step"]["loss"] - loss_ref) / abs(loss_ref)
+    check(rel2 <= PAR_LOSS_REL, f"phase 12b loss {r0['step']['loss']} vs {loss_ref}")
+    for r, o in enumerate(outs):
+        la = o.result["launches"]
+        check(la[f"blend_fwd[G={g}]"] > 0 and la[f"blend_bwd[G={g}]"] > 0,
+              f"phase 12b rank {r}: a blend kernel never ran on the training path: {la}")
+        check(o.result["hist"][-1]["loss"] == r0["hist"][-1]["loss"],
+              "phase 12b: the ranks report different losses")
+    hist = r0["hist"]
+    losses = [h["loss"] for h in hist]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(all(math.isfinite(x) for x in losses) and r0["finite"], "phase 12b not finite")
+    check(last < first, f"phase 12b loss did not fall: {first} -> {last}")
+    check(hist[-1]["n_vis_overflow"] == 0, f"phase 12b gather overflow {hist[-1]}")
+    check(hist[PAR_DENSIFY_AT]["n_active"] != hist[PAR_DENSIFY_AT - 1]["n_active"],
+          "phase 12b: the densify changed nothing")
+    launches = {k: sum(o.result["launches"][k] for o in outs) for k in r0["launches"]}
+    log(f"phase 12b world {world} ({backend}, {sharing}; bands of {band_px} rows, "
+        f"{h_pad} padded): step loss {r0['step']['loss']:.7f} (rel {rel2:.2e}), first moments "
+        f"and statistics worst {w2:.2e} of max |.|; B3 / B4 on each rank's band vs plain "
+        f"(forward abs, backward of max |plain|): "
+        + ", ".join(f"{b[0]:.3e} / {b[1]:.3e}" for b in (o.result["band"] for o in outs))
+        + f"; {PAR_ITERS} iterations of train(mesh=): "
+        f"{r0['host_ms']:.3f} ms per iteration, median (host clock, {sharing}"
+        + (": no scaling figure" if sharing != "a card a rank" else "")
+        + f"), {r0['wall']:.3f} s in all; loss {first:.5f} -> {last:.5f}; "
+        f"n_active {hist[0]['n_active']} -> {r0['n_active']} (capacity {r0['capacity']}); "
+        f"n_vis {hist[-1]['n_vis']:.0f} (worst rank {hist[-1]['n_vis_max']:.0f}), gather_rows "
+        f"{hist[-1]['gather_rows']:.0f}, full_gather_rows {hist[-1]['full_gather_rows']:.0f}; "
+        f"launches per rank {[o.result['launches'] for o in outs]}")
+    log("  loss per iteration: " + " ".join(f"{x:.5f}" for x in losses))
+    log(f"phase 12: {time.perf_counter() - t_start:.1f} s in all")
+    return {"launches": launches, "gate_worst": max(w1, w2), "step_ms": step_ms,
+            "band_worst": [max(b[i] for b in [band1] + [o.result["band"] for o in outs])
+                           for i in (0, 1)]}
+
+
+def nccl_only(workdir):
+    """--nccl, on a machine with several cards: phase 12 with (b) at one
+    rank a card under NCCL, then ``bench_scaling`` at every power of two up
+    to the card count (a card a rank, so with its efficiency figure)."""
+    from radegs_torch.scripts import bench_scaling
+
+    cards = torch.cuda.device_count()
+    check(cards > 1, f"--nccl needs several cards, found {cards}")
+    parallel_training(workdir, world=cards, device="cuda")
+    bench_scaling.main(["--world_sizes", *[str(1 << k) for k in range(cards.bit_length())
+                                           if 1 << k <= cards], "--zoom"])
+
+
+def parallel_only(workdir):
+    """--parallel: phase 12 alone, then the growth stress at world 2 to its
+    default target and the weak-scaling script at worlds 1 and 2."""
+    from radegs_torch.scripts import bench_scaling, stress_mesh_growth
+
+    parallel_training(workdir)
+    t0 = time.perf_counter()
+    stress_mesh_growth.main(["--world_size", "2", "--report",
+                             os.path.join(workdir, "stress_mesh_growth.json")])
+    log(f"--parallel stress_mesh_growth: {time.perf_counter() - t0:.1f} s")
+    bench_scaling.main(["--world_sizes", "1", "2", "--zoom"])
+
+
 def backward_only(workdir, other):
     """``--bwd [CSRC]``: phase 2, the reference check, the fault C1 witness
     and phase 5's backward at its three shapes, beside BWD_VARIANTS,
@@ -3609,6 +3984,16 @@ def main():
         quality_schedule(workdir, float(sys.argv[2]) if len(sys.argv) > 2 else None)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return
+    if sys.argv[1:] == ["--nccl"]:
+        with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+            nccl_only(tmp)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return
+    if sys.argv[1:] == ["--parallel"]:
+        with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+            parallel_only(tmp)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return
     if sys.argv[1:] == ["--train100k"]:
         with tempfile.TemporaryDirectory(dir=workdir) as tmp:
             train_ab(tmp)
@@ -3625,6 +4010,7 @@ def main():
         evaluation(ep)
         probes = bisect_probes(res)
         qual = quality(tmp)
+        par12 = parallel_training(tmp, res)
     kernels = []
     fwd = res["bwd"]["a"]["fwd"]
     for g, replaces in ((1, "radegs_tpu/ops/pallas_blend.py:263"),
@@ -3677,8 +4063,9 @@ def main():
             "bound_by": row["bound"][1], "library_ms": row["library_ms"],
             "floor_ms": row["floor_ms"],
         })
-    for k in kernels:  # launches on phase 11a's quality path
+    for k in kernels:  # launches on phase 11a's quality path and phase 12b's ranks
         k["quality_launches"] = qual["launches"].get(k["name"], 0)
+        k["parallel_launches"] = par12["launches"].get(k["name"], 0)
     log(f"backward kernel vs plain, max rel err per field over phases 2 and 5: "
         f"{max([p[2] for p in parity] + [v['rel'] for v in bwd.values()]):.3e}; vs the "
         f"reference renderer {res['ref_rel']:.3e}")

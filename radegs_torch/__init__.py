@@ -13,6 +13,8 @@ so each module's JAX original is found by name:
                  the decoupled-appearance network.
 - ``train``    — configuration, argument parsing, Adam and the single-card
                  training loop.
+- ``parallel`` — multi-rank training on ``torch.distributed``: a block of
+                 the Gaussians and a band of every view a rank.
 - ``mesh``     — TSDF, Marching Tetrahedra, unbounded extraction, culling.
 - ``data``     — COLMAP / Blender readers, the ``Scene`` and LLFF's
                  ``poses_bounds.npy``.

@@ -9,19 +9,22 @@ import torch
 import torch.nn.functional as F
 
 
-def depths_to_points(camera, depthmap):
-    """Backproject a (H, W) or (1, H, W) depth map to camera-space points
-    (3, H, W): rays through pixel centres (x + 0.5, y + 0.5) with the
-    principal point at W/2, H/2 (graphics_utils.py:97-111)."""
+def depths_to_points(camera, depthmap, row0: float = 0.0):
+    """Backproject a (R, W) or (1, R, W) depth map to camera-space points
+    (3, R, W): rays through pixel centres (x + 0.5, y + 0.5) with the
+    principal point at W/2, H/2 (graphics_utils.py:97-111). The map holds
+    the image's rows ``row0 .. row0 + R`` (the whole image by default; a
+    band of it in the multi-rank step)."""
     H, W = camera.height, camera.width
+    R = depthmap.shape[-2]
     dev = depthmap.device
     fx = W / (2.0 * torch.tan(camera.fovx / 2.0))
     fy = H / (2.0 * torch.tan(camera.fovy / 2.0))
     gx = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5 - W / 2.0) / fx
-    gy = (torch.arange(H, dtype=torch.float32, device=dev) + 0.5 - H / 2.0) / fy
-    rays = torch.stack([gx[None, :].expand(H, W), gy[:, None].expand(H, W),
-                        torch.ones((H, W), dtype=torch.float32, device=dev)], dim=0)
-    return depthmap.reshape(1, H, W) * rays
+    gy = (row0 + torch.arange(R, dtype=torch.float32, device=dev) + 0.5 - H / 2.0) / fy
+    rays = torch.stack([gx[None, :].expand(R, W), gy[:, None].expand(R, W),
+                        torch.ones((R, W), dtype=torch.float32, device=dev)], dim=0)
+    return depthmap.reshape(1, R, W) * rays
 
 
 def points_to_normal(points):

@@ -381,7 +381,7 @@ def reset_opacity(state: GaussianState) -> GaussianState:
     )
 
 
-def _per_slot(state: GaussianState, fn) -> GaussianState:
+def per_slot(state: GaussianState, fn) -> GaussianState:
     """``fn`` applied to every per-slot tensor of the state."""
     return state.replace(
         params=state.params.map(fn), active=fn(state.active), filter_3d=fn(state.filter_3d),
@@ -401,12 +401,12 @@ def resize_capacity(state: GaussianState, new_capacity: int) -> GaussianState:
             return torch.cat([x, torch.zeros((new_capacity - C,) + x.shape[1:], dtype=x.dtype,
                                              device=x.device)])
 
-        return _per_slot(state, grow)
+        return per_slot(state, grow)
     n = int(state.n_active())
     if n > new_capacity:
         raise ValueError(f"cannot shrink capacity to {new_capacity}: {n} active gaussians")
     idx = torch.sort((~state.active).to(torch.uint8), stable=True).indices[:new_capacity]
-    return _per_slot(state, lambda x: x[idx])
+    return per_slot(state, lambda x: x[idx])
 
 
 def maybe_grow(state: GaussianState, headroom: float = 0.9) -> GaussianState:

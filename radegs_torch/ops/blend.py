@@ -220,13 +220,17 @@ def grads_from_rows(rows):
     }
 
 
-def blend_backward_torch(tile_gauss, inputs, fwd_out, cot, width: int, height: int):
+def blend_backward_torch(tile_gauss, inputs, fwd_out, cot, width: int, height: int,
+                         ndc_size=None):
     """Plain version of the backward kernel (port of ``_blend_backward_scan``,
     rasterize.py:219-405): every tile re-walks its (T, K) front-to-back id
     list one contributor at a time, all pixels at once, with the forward's
     gates; each contributor's 25 pixel sums are added to its Gaussian with
     ``index_add_``. ``fwd_out`` is the forward's raw dict, ``cot`` a dict of
-    cotangents for ``DIFF_KEYS`` in the same layouts."""
+    cotangents for ``DIFF_KEYS`` in the same layouts. ``ndc_size``: the
+    (width, height) that scales the GOF abs gradient to NDC units (default
+    the render's; a band passes the full image's)."""
+    half_w, half_h = (0.5 * s for s in (ndc_size or (width, height)))
     _, _, opacity, rgb, _, camera_plane, ray_plane, normal, _ = inputs
     op = opacity.reshape(-1)
     dev = op.device
@@ -278,7 +282,7 @@ def blend_backward_torch(tile_gauss, inputs, fwd_out, cot, width: int, height: i
         # the kernel's 25 pixel sums, in grad-row order; rows 0:2 still lack
         # the ray-plane and camera-plane terms of d(xy)
         sums = torch.stack(
-            [e_x, e_y, e_x.abs() * (width * 0.5) + e_y.abs() * (height * 0.5),
+            [e_x, e_y, e_x.abs() * half_w + e_y.abs() * half_h,
              -0.5 * gdx * dx * dL_dG, -gdx * dy * dL_dG, -0.5 * gdy * dy * dL_dG,
              dL_draw * s.fall, *(w * g_c), *dL_dcoord, *(dL_dcoord * dx), *(dL_dcoord * dy),
              dL_dt * dx, dL_dt * dy, *(w * g_n), dL_dt], dim=1).sum(-1)  # (T, 25)
@@ -427,7 +431,7 @@ def instance_segments(gauss_id, P: int):
 
 
 def blend_backward(binning: TileBinning, inputs, fwd_out, cot, width: int, height: int,
-                   tiles_per_block: int = 2):
+                   tiles_per_block: int = 2, ndc_size=None):
     """Per-Gaussian gradients of the blend (the dict of ``grads_from_rows``).
     On CUDA tensors it launches the kernel pair of ``csrc/blend_bwd.cu`` or
     raises: the per-tile walk writes one row of 25 sums per instance, the
@@ -435,10 +439,13 @@ def blend_backward(binning: TileBinning, inputs, fwd_out, cot, width: int, heigh
     rows in sorted-position order (deterministic, no atomics). ``tiles_per_block``
     (1 or 2) is the tiles per CUDA block of the walk; both give the same
     bits. On CPU tensors it runs ``blend_backward_torch`` over
-    ``binning.tile_gauss``."""
+    ``binning.tile_gauss``. ``ndc_size``: (width, height) of the GOF abs
+    gradient's NDC scale (default the render's; the kernel reads its width
+    and height for that scale alone)."""
     if binning.tile_count.device.type == "cpu":
         return blend_backward_torch(_plain_tile_gauss(binning), inputs, fwd_out, cot,
-                                    width, height)
+                                    width, height, ndc_size)
+    ndc_w, ndc_h = ndc_size or (width, height)
     feat, T, tiles_x = _kernel_inputs(binning, inputs, width, height, tiles_per_block)
     dev = feat.device
     P, N = feat.shape[0], binning.gauss_id.numel()
@@ -454,7 +461,7 @@ def blend_backward(binning: TileBinning, inputs, fwd_out, cot, width: int, heigh
             feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
             binning.tile_count.data_ptr(), aux.data_ptr(), med_pos.data_ptr(),
             rank.data_ptr(), seg.data_ptr(), inst_rows.data_ptr(), grad.data_ptr(), T,
-            tiles_x, N, P, width, height, tiles_per_block,
+            tiles_x, N, P, ndc_w, ndc_h, tiles_per_block,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"blend_bwd kernel launch failed with CUDA error {rc}")

@@ -11,6 +11,11 @@ As in the JAX package's custom VJP, the Function's boundary is drawn around
 the raw accumulators only; ``med_pos`` is not differentiable, and the
 gradient of the dummy input ``xy_abs`` is the GOF densification side
 channel (rasterize.py:457-497).
+
+Band mode (``render_width``, ``render_height``, ``band_row0``) renders one
+horizontal band of the image, as the multi-rank step does
+(``parallel/step.py``): binning, the blend and ``untile`` use the band's
+size; ``ln`` uses global rows and the full camera geometry.
 """
 
 from __future__ import annotations
@@ -75,12 +80,12 @@ class BlendFunction(torch.autograd.Function):
     ``xy_abs``) and the packed raw outputs (T, 17, 256) and ``med_pos``."""
 
     @staticmethod
-    def forward(ctx, binning, width, height, tiles_per_block, xy, xy_abs, conic, opacity,
-                rgb, view_point, camera_plane, ray_plane, normal, ts):
+    def forward(ctx, binning, width, height, tiles_per_block, ndc_size, xy, xy_abs, conic,
+                opacity, rgb, view_point, camera_plane, ray_plane, normal, ts):
         inputs = (xy, conic, opacity, rgb, view_point, camera_plane, ray_plane, normal, ts)
         out, med_pos = blend_forward_packed(binning, inputs, width, height, tiles_per_block)
         ctx.binning = binning
-        ctx.geometry = (width, height, tiles_per_block)
+        ctx.geometry = (width, height, tiles_per_block, ndc_size)
         ctx.save_for_backward(*inputs, out, med_pos)
         ctx.mark_non_differentiable(med_pos)
         return out, med_pos
@@ -89,21 +94,26 @@ class BlendFunction(torch.autograd.Function):
     def backward(ctx, g_out, _g_med_pos):
         # absent cotangents arrive as zeros (materialised by autograd)
         *inputs, out, med_pos = ctx.saved_tensors
-        width, height, tiles_per_block = ctx.geometry
+        width, height, tiles_per_block, ndc_size = ctx.geometry
         grads = blend_backward(ctx.binning, tuple(inputs), unpack_raw(out, med_pos),
-                               unpack_raw(g_out, None), width, height, tiles_per_block)
-        return (None, None, None, None, grads["xy"], grads["xy_abs"], grads["conic"],
+                               unpack_raw(g_out, None), width, height, tiles_per_block,
+                               ndc_size=ndc_size)
+        return (None, None, None, None, None, grads["xy"], grads["xy_abs"], grads["conic"],
                 grads["opacity"], grads["rgb"], grads["view_point"], grads["camera_plane"],
                 grads["ray_plane"], grads["normal"], grads["ts"])
 
 
-def normalize(raw, camera, bg):
-    """Raw accumulators -> the render() images (rasterize.py:602-641)."""
-    W, H = camera.width, camera.height
+def normalize(raw, camera, bg, width: int | None = None, height: int | None = None,
+              band_row0: int = 0):
+    """Raw accumulators -> the render() images (rasterize.py:602-641) of a
+    ``width`` x ``height`` render (default the camera's) whose first row is
+    global row ``band_row0``."""
+    W, H = width or camera.width, height or camera.height
     pix_x, pix_y = tile_pixel_coords(W, H, raw["weight"].device)
-    # ln uses the global image geometry (W/2-centred, forward.cu:466)
-    pnx = (pix_x - W / 2.0) / camera.focal_x
-    pny = (pix_y - H / 2.0) / camera.focal_y
+    # ln uses the global image geometry (W/2-centred, forward.cu:466), also
+    # for a band
+    pnx = (pix_x - camera.width / 2.0) / camera.focal_x
+    pny = (pix_y + band_row0 - camera.height / 2.0) / camera.focal_y
     ln = torch.sqrt(pnx * pnx + pny * pny + 1.0)  # (T, 256)
 
     weight = raw["weight"]
@@ -142,6 +152,9 @@ def rasterize(
     tiles_per_block: int = 2,
     xy_abs=None,
     events: list | None = None,
+    render_width: int | None = None,
+    render_height: int | None = None,
+    band_row0: int = 0,
 ):
     """Binning + blend + output normalisation. Returns the render() dict of
     gaussian_renderer/__init__.py:85-95 (channels-first images) plus
@@ -151,8 +164,13 @@ def rasterize(
     ``xy_abs``: optional (P, 2) zeros; its gradient is the GOF absolute
     screen-gradient densification statistic.
     ``events``: a list that receives (stage, torch.cuda.Event) after the
-    binning, blend and normalisation stages (CUDA only), for stage timing."""
-    W, H = camera.width, camera.height
+    binning, blend and normalisation stages (CUDA only), for stage timing.
+    ``render_width`` / ``render_height`` / ``band_row0``: render only the
+    band of global rows ``band_row0 ..`` (rasterize.py:529-539); ``prep.xy``
+    must already be shifted to band-local rows (y - band_row0). The camera
+    keeps the full image: ``ln`` uses global rows, and the GOF statistic's
+    NDC scale the full image size."""
+    W, H = render_width or camera.width, render_height or camera.height
     on_cpu = prep.xy.device.type == "cpu"
 
     if binning is None:
@@ -165,12 +183,13 @@ def rasterize(
         xy_abs = torch.zeros_like(prep.xy)
     xy, conic, opacity, rgb, view_point, camera_plane, ray_plane, normal, ts = \
         blend_inputs(prep)
-    out, med_pos = BlendFunction.apply(binning, W, H, tiles_per_block, xy, xy_abs, conic,
+    out, med_pos = BlendFunction.apply(binning, W, H, tiles_per_block,
+                                       (camera.width, camera.height), xy, xy_abs, conic,
                                        opacity, rgb, view_point, camera_plane, ray_plane,
                                        normal, ts)
     raw = unpack_raw(out, med_pos)
     mark(events, "blend")
-    out = normalize(raw, camera, bg)
+    out = normalize(raw, camera, bg, W, H, band_row0)
     mark(events, "normalize")
     out.update(radii=prep.radius, visibility_filter=prep.valid & (prep.radius > 0),
                binning=binning)

@@ -9,28 +9,36 @@ refreshes, test PSNR at ``--test_iterations``, PLY snapshots at
     python -m radegs_torch.scripts.train --synthetic --iterations 300   # no dataset
     ... --device cpu                                                    # on the CPU
     ... --ip 127.0.0.1 --port 6009                    # serve SIBR's remote viewer while training
+    ... --multichip [--world_size N] [--dist_backend {nccl,gloo}]   # several ranks
+    torchrun --nproc_per_node N -m radegs_torch.scripts.train --multichip ...
 
 With ``--ip`` each iteration polls the network viewer (``viewer.NetworkGUI``):
 a connected viewer gets one frame per iteration, rendered on the card at
 its camera and scaling modifier, and after the last iteration frames until
-it sends ``keep_alive`` false. ``--multichip`` is not ported yet and raises
-``NotImplementedError``.
+it sends ``keep_alive`` false.
+
+``--multichip`` trains on several ranks (``parallel/``: each holds a block
+of the Gaussians and renders a band of every view). Under ``torchrun`` the
+CLI joins its process group; otherwise it spawns ``--world_size`` ranks
+(default: one per card; with ``--device cpu``, gloo ranks on the CPU, the
+counterpart of the JAX CLI's ``--cpu_devices``). The backend is NCCL
+when every rank has a card of its own, else gloo
+(``parallel.default_backend``); ``--dist_backend`` names it instead
+(``nccl`` with more ranks than cards raises). Rank 0 writes the outputs.
+``--ip`` is single-rank only.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import os
 import time
 import uuid
 
 import numpy as np
 import torch
-
-MULTICHIP_TODO = ("multi-card training (--multichip, parallel/) is not ported yet: "
-                  "ROADMAP.md queue A item 5 (parallel/ on torch.distributed)")
-
 
 def build_parser():
     from radegs_torch.train.arguments import add_group
@@ -54,7 +62,14 @@ def build_parser():
     p.add_argument("--synthetic", action="store_true",
                    help="train on a tiny built-in synthetic scene (no dataset needed)")
     p.add_argument("--multichip", action="store_true",
-                   help="shard training over several cards (not ported)")
+                   help="train on several ranks (parallel/): a block of the Gaussians and a "
+                        "band of every view each")
+    p.add_argument("--world_size", type=int, default=0,
+                   help="--multichip: ranks to spawn (0: one per card, or 1 with --device "
+                        "cpu); ignored under torchrun")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="--multichip: the process group's backend (default nccl when every "
+                        "rank has a card of its own, else gloo)")
     add_device_arg(p)
     return p
 
@@ -99,11 +114,58 @@ def main(argv=None):
     """Run training. Returns (train_state, history, test_psnr): ``history``
     as written to ``history.json``; ``test_psnr`` {iteration: mean PSNR over
     the test views} for the ``--test_iterations`` that ran (empty without
-    test views)."""
+    test views). With ``--multichip`` spawning its ranks, rank 0's, its
+    state moved to the CPU."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    if args.multichip:
-        raise NotImplementedError(MULTICHIP_TODO)
+    if not args.multichip:
+        return run(args)
+    if args.ip:
+        raise ValueError("--ip serves the viewer from one rank; train without --multichip")
+    import torch.distributed as dist
 
+    from radegs_torch.parallel.launch import default_backend, rank_device, run_ranks
+    from radegs_torch.utils.device import resolve_device
+
+    resolve_device(args.device)  # raises for cuda without a card
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # under torchrun
+        from radegs_torch.parallel.comm import make_mesh_1d
+
+        dev = rank_device(args.device, int(os.environ.get("LOCAL_RANK", 0)))
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+        dist.init_process_group(args.dist_backend or default_backend(local_world, args.device),
+                                init_method="env://")
+        try:
+            return run(args, make_mesh_1d(device=dev))
+        finally:
+            dist.destroy_process_group()
+    world = args.world_size or (torch.cuda.device_count() if args.device == "cuda" else 1)
+    return run_ranks(_rank_main, world, args.dist_backend, args.device, timeout_s=None,
+                     args=(argv,))[0].result
+
+
+def _rank_main(mesh, argv):
+    ts, history, test_psnr = run(build_parser().parse_args(argv), mesh)
+    if mesh.rank:
+        return None, history, test_psnr
+    return _on_cpu(ts), history, test_psnr
+
+
+def _on_cpu(ts):
+    from radegs_torch.models import gaussian_model as gm
+    from radegs_torch.train.loop import map_app
+
+    g = gm.per_slot(ts.gaussians, lambda x: x.cpu())
+    app = {k: None if getattr(ts, k) is None else map_app(lambda x: x.cpu(), getattr(ts, k))
+           for k in ("app_params", "app_m", "app_v")}
+    return ts.replace(gaussians=g, **app)
+
+
+def run(args, mesh=None):
+    """The training of ``main`` on this process; ``mesh``: this rank's
+    ``parallel.Mesh1D`` (multi-rank: only rank 0 writes or prints)."""
     from radegs_torch.models import gaussian_model as gm
     from radegs_torch.ops.ssim import psnr
     from radegs_torch.renderer import render
@@ -112,16 +174,18 @@ def main(argv=None):
     from radegs_torch.train.loop import SceneLike, init_train_state, train
     from radegs_torch.utils.device import resolve_device
 
-    dev = resolve_device(args.device)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
     mcfg = extract(ModelConfig, args)
     ocfg = extract(OptimizationConfig, args)
     pcfg = extract(PipelineConfig, args)
     if not mcfg.model_path:
         uid = os.getenv("OAR_JOB_ID", str(uuid.uuid4()))[:10]
         mcfg = ModelConfig(**{**mcfg.__dict__, "model_path": f"./output/{uid}"})
-    os.makedirs(mcfg.model_path, exist_ok=True)
-    save_cfg_args(mcfg.model_path, mcfg)
-    print(f"Output folder: {mcfg.model_path}")
+    if lead:
+        os.makedirs(mcfg.model_path, exist_ok=True)
+        save_cfg_args(mcfg.model_path, mcfg)
+        print(f"Output folder: {mcfg.model_path}")
 
     scene_obj = None
     if args.synthetic:
@@ -134,7 +198,8 @@ def main(argv=None):
     else:
         from radegs_torch.data.scene import Scene
 
-        scene_obj = Scene(mcfg.source_path, model_path=mcfg.model_path, images=mcfg.images,
+        scene_obj = Scene(mcfg.source_path, model_path=mcfg.model_path if lead else None,
+                          images=mcfg.images,
                           eval_split=mcfg.eval, white_background=mcfg.white_background,
                           resolution=mcfg.resolution, seed=args.seed, device=dev)
         cameras = scene_obj.getTrainCameras()
@@ -149,7 +214,7 @@ def main(argv=None):
     try:
         from torch.utils.tensorboard import SummaryWriter
 
-        tb = SummaryWriter(mcfg.model_path)
+        tb = SummaryWriter(mcfg.model_path) if lead else None
     except Exception:
         print("Tensorboard not available: not logging progress")
 
@@ -171,12 +236,21 @@ def main(argv=None):
             tb.add_scalar("train/psnr", metrics["psnr"], it)
             tb.add_scalar("total_points", metrics["n_active"], it)
             tb.add_scalar("iters_per_s", ips, it)
-        if not args.quiet:
+        if lead and not args.quiet:
             print(f"[{it:6d}] loss {metrics['loss']:.5f}  l1 {metrics['l1']:.5f}  "
                   f"psnr {metrics['psnr']:5.2f}  pts {metrics['n_active']:7d}  {ips:6.2f} it/s",
                   flush=True)
 
     def on_schedule(it, ts, metrics):
+        if mesh is not None and (it in args.save_iterations or it in args.checkpoint_iterations
+                                 or (it in args.test_iterations and test_cams)):
+            # every rank joins the gather; rank 0 evaluates and writes
+            from radegs_torch.parallel import gather_gaussian_state, to_canonical
+
+            ts = ts.replace(gaussians=to_canonical(gather_gaussian_state(ts.gaussians, mesh),
+                                                   mesh.world))
+        if not lead:
+            return
         if it in args.test_iterations and test_cams:
             with torch.no_grad():
                 vals = [float(psnr(render(
@@ -228,12 +302,14 @@ def main(argv=None):
     try:
         ts, history = train(scene, gaussians, mcfg, ocfg, pcfg, seed=args.seed,
                             log_every=args.log_every, callbacks=tuple(callbacks),
-                            resume_state=resume_state, device=dev)
+                            resume_state=resume_state, mesh=mesh, device=dev)
     finally:
         if gui is not None:
             gui.close()
 
     it = int(ts.iteration)
+    if not lead:
+        return ts, history, test_psnr
     save_snapshot(mcfg.model_path, ts.gaussians, it)  # the final snapshot
     with open(os.path.join(mcfg.model_path, "history.json"), "w") as f:
         json.dump(history, f)
@@ -241,7 +317,9 @@ def main(argv=None):
         tb.close()
     dt = time.time() - t_start
     final = f", final loss {history[-1]['loss']:.5f}" if history else ""
-    print(f"Training complete: {it} iters in {dt:.1f}s ({it / max(dt, 1e-9):.2f} it/s){final}")
+    ranks = f" on {mesh.world} ranks ({mesh.backend})" if mesh is not None else ""
+    print(f"Training complete{ranks}: {it} iters in {dt:.1f}s ({it / max(dt, 1e-9):.2f} it/s)"
+          f"{final}")
     return ts, history, test_psnr
 
 

@@ -40,6 +40,11 @@ class PipelineConfig:
     # training loop's autotune pins it to the measured peak demand rounded
     # to a budget bucket (ops/binning.round_budget)
     instance_budget: int = 0
+    # multi-rank training only: the per-rank cap on the visibility-compressed
+    # gather (0 = lossless, capacity / world). The loop's autotune shrinks it
+    # toward the measured worst-rank visible peak (n_vis_max) and grows it
+    # back on n_vis_overflow.
+    vis_capacity: int = 0
     tiles_per_block: int = 2  # tiles per CUDA block of the blend kernels
 
 

@@ -7,8 +7,9 @@ package's ``jax.jit``; nothing is wrapped in ``torch.compile``.
 
 Decoupled appearance (``models/appearance.py``) trains beside the Gaussians
 with the same explicit Adam arithmetic, dense over the whole network and
-embedding table, on the loop's own step count. Not ported yet (it raises
-``NotImplementedError``): the multi-card mesh path (``parallel/``).
+embedding table, on the loop's own step count. With ``mesh`` (a
+``parallel.Mesh1D``) every rank runs the loop on its block of the Gaussians
+through the multi-rank step of ``parallel/step.py``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from radegs_torch import parallel as par
 from radegs_torch.core.geometry import depth_double_to_normal, point_double_to_normal
 from radegs_torch.models import gaussian_model as gm
 from radegs_torch.models.appearance import (
@@ -35,6 +37,7 @@ from radegs_torch.ops.binning import (
 )
 from radegs_torch.ops.rasterize import mark
 from radegs_torch.ops.ssim import l1_loss, ssim
+from radegs_torch.parallel.comm import replicas_agree
 from radegs_torch.renderer import render
 from radegs_torch.train.config import (
     ModelConfig,
@@ -42,12 +45,8 @@ from radegs_torch.train.config import (
     PipelineConfig,
     replace as replace_cfg,
 )
-from radegs_torch.train.optim import BETA1, BETA2, EPS, GroupLRs, adam_step, expon_lr
+from radegs_torch.train.optim import GroupLRs, adam_step, appearance_adam, expon_lr
 from radegs_torch.utils.device import resolve_device
-
-MESH_TODO = ("multi-card training (parallel/) is not ported yet: it is the last slice of "
-             "the port (ROADMAP.md queue A, parallel/ on torch.distributed)")
-
 
 @dataclass(frozen=True)
 class TrainState:
@@ -182,7 +181,9 @@ def make_train_step(mcfg: ModelConfig, ocfg: OptimizationConfig, pcfg: PipelineC
             g = adam_step(g, grads, lrs)
             app_state = {}
             if app is not None:
-                app_state = appearance_adam(app, ts.app_m, ts.app_v, it, ocfg)
+                app_state = appearance_adam(app, ts.app_m, ts.app_v, it,
+                                           ocfg.appearance_network_lr,
+                                           ocfg.appearance_embeddings_lr)
             mark(events, "adam")
 
             # densification statistics (train.py:186-188): the screen
@@ -196,28 +197,6 @@ def make_train_step(mcfg: ModelConfig, ocfg: OptimizationConfig, pcfg: PipelineC
         return ts.replace(gaussians=g, iteration=it, **app_state), {k: aux[k] for k in METRICS}
 
     return train_step
-
-
-def appearance_adam(app, app_m, app_v, it: int, ocfg: OptimizationConfig) -> dict:
-    """The appearance Adam of loop.py:181-202: dense over every tensor (rows
-    of the embedding table that got no gradient still move with their
-    moments), bias corrections in float32 from the loop's step ``it``.
-    ``app``: the parameters after backward (``.grad`` set or None)."""
-    bc1 = float(1.0 - torch.tensor(BETA1, dtype=torch.float32) ** it)
-    bc2 = float(1.0 - torch.tensor(BETA2, dtype=torch.float32) ** it)
-
-    def upd(p, m, v, lr):
-        g = torch.zeros_like(p) if p.grad is None else p.grad
-        m = BETA1 * m + (1 - BETA1) * g
-        v = BETA2 * v + (1 - BETA2) * g * g
-        return p.detach() - lr * (m / bc1) / (torch.sqrt(v / bc2) + EPS), m, v
-
-    net = {k: upd(app["net"][k], app_m["net"][k], app_v["net"][k], ocfg.appearance_network_lr)
-           for k in app["net"]}
-    emb = upd(app["embeddings"], app_m["embeddings"], app_v["embeddings"],
-              ocfg.appearance_embeddings_lr)
-    return {key: {"net": {k: v[i] for k, v in net.items()}, "embeddings": emb[i]}
-            for i, key in enumerate(("app_params", "app_m", "app_v"))}
 
 
 def densify_step(g: gm.GaussianState, generator, max_grad, min_opacity, extent,
@@ -237,12 +216,19 @@ class StopTraining(Exception):
 
 
 def autotune_pipeline(pcfg: PipelineConfig, n_ovf: float, t_ovf: float, window_peak: float,
-                      capacity: int, shrink_check: bool) -> tuple[PipelineConfig, bool]:
-    """One application of the work-buffer policy (loop.py:238-299): grow the
+                      capacity: int, shrink_check: bool, vis_ovf: float = 0.0,
+                      vis_peak: float = 0.0,
+                      per_shard_cap: int = 0) -> tuple[PipelineConfig, bool]:
+    """One application of the work-buffer policy (loop.py:238-323): grow the
     instance budget on overflow (to 1.3x the window's peak demand, and at
     least 1.5x), shrink it when the peak leaves it oversized by at least a
     segment and 15%, and double ``max_per_tile`` on a tile overflow (up to
-    ``MAX_PER_TILE_CAP``). Returns (new_pcfg, changed)."""
+    ``MAX_PER_TILE_CAP``). Multi-rank training (``per_shard_cap``, the
+    per-rank capacity, > 0) also tunes the gather cap ``vis_capacity``: up
+    on ``vis_ovf`` (to 1.3x the worst-rank visible peak ``vis_peak``, and at
+    least 2x), down to 1.5x the peak on a ``shrink_check``, in powers of two
+    of at least 4096, never above ``per_shard_cap``. Returns (new_pcfg,
+    changed)."""
     changed = False
     budget = instance_budget(pcfg, capacity)
     target = round_budget(window_peak * 1.3)
@@ -266,6 +252,24 @@ def autotune_pipeline(pcfg: PipelineConfig, n_ovf: float, t_ovf: float, window_p
         print(f"[radegs] tile overflow ({t_ovf:.0f}): growing max_per_tile to "
               f"{pcfg.max_per_tile}", flush=True)
         changed = True
+    if per_shard_cap:
+        cur_v = min(pcfg.vis_capacity, per_shard_cap) if pcfg.vis_capacity else per_shard_cap
+
+        def v_bucket(x):
+            return min(per_shard_cap, max(1 << 12, 1 << (int(x) - 1).bit_length()))
+
+        if vis_ovf > 0 and cur_v < per_shard_cap:
+            new_v = min(per_shard_cap, max(v_bucket(vis_peak * 1.3), cur_v * 2))
+            pcfg = replace_cfg(pcfg, vis_capacity=new_v)
+            print(f"[radegs] vis overflow ({vis_ovf:.0f}): growing gather cap {cur_v} -> "
+                  f"{new_v}", flush=True)
+            changed = True
+        elif shrink_check and vis_peak > 0 and v_bucket(vis_peak * 1.5) < cur_v:
+            new_v = v_bucket(vis_peak * 1.5)
+            pcfg = replace_cfg(pcfg, vis_capacity=new_v)
+            print(f"[radegs] gather cap underused (worst-rank peak {vis_peak:.0f}/{cur_v}): "
+                  f"shrinking to {new_v}", flush=True)
+            changed = True
     return pcfg, changed
 
 
@@ -283,12 +287,12 @@ def train(
     device=None,
     step_events: list | None = None,
 ):
-    """Single-card training on the schedule of train.py:91-214: SH degree
-    up every 1000 iterations, densify / prune every ``densification_interval``
-    inside the densify window (then the 3D filter refresh and a capacity
-    check), opacity reset every ``opacity_reset_interval``, the 3D filter
-    refreshed every 100 iterations after the window, and the work buffers
-    autotuned every iteration from the previous step's counters.
+    """Training on the schedule of train.py:91-214: SH degree up every 1000
+    iterations, densify / prune every ``densification_interval`` inside the
+    densify window (then the 3D filter refresh and a capacity check),
+    opacity reset every ``opacity_reset_interval``, the 3D filter refreshed
+    every 100 iterations after the window, and the work buffers autotuned
+    every iteration from the previous step's counters.
 
     ``device``: default ``cuda`` (raises without a card); the Gaussian state
     must live there. Views are drawn as the JAX package draws them
@@ -296,13 +300,20 @@ def train(
     from a ``torch.Generator`` seeded with ``seed``, the appearance network's
     initialisation (``mcfg.use_decoupled_appearance``) from one seeded with
     ``seed + 1``.
+    ``mesh``: this rank's ``parallel.Mesh1D``; every rank of it calls
+    ``train`` with the same arguments and the full state. The ranks then
+    train their blocks of the strided layout (``parallel/rebalance.py``)
+    with the multi-rank step: bands of every view, the gather capped at
+    ``pcfg.vis_capacity`` (autotuned). Around each densification every rank
+    gathers the canonical state, densifies it with the same draws (checked
+    to agree across ranks) and keeps its block of the result. Callbacks see
+    the rank's strided block; logged ``n_active`` counts every rank's. All
+    views must share one size. Every rank returns the canonical full state.
     ``step_events``: a list that receives, per iteration, the step's list of
     (stage, torch.cuda.Event) marks, followed by "densify" / "reset_opacity"
-    marks on the iterations that ran them (CUDA only).
+    marks on the iterations that ran them (CUDA only, single-rank).
     Returns (train_state, history): ``history`` holds the metrics as floats
     at every ``log_every``-th iteration and the last."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_TODO)
     dev = resolve_device(device)
     if gaussians.device.type != dev.type:
         raise ValueError(f"the Gaussian state lives on {gaussians.device}, not on {dev}")
@@ -325,12 +336,42 @@ def train(
     else:
         ts = ts.replace(gaussians=gm.update_3d_filter(ts.gaussians, cam_list))
 
-    step_fn = make_train_step(mcfg, ocfg, pcfg, spatial_lr_scale=scene.extent)
+    n_dev = 1
+    if mesh is None:
+        def make_step(pcfg_):
+            return make_train_step(mcfg, ocfg, pcfg_, spatial_lr_scale=scene.extent)
+    else:
+        n_dev = mesh.world
+        W, H = cam_list[0].width, cam_list[0].height
+        if any((c.width, c.height) != (W, H) for c in cam_list):
+            raise ValueError("multi-rank training needs views of one size")
+        _, _, h_pad = par.band_layout(H, n_dev)
+        cameras = [(cam, par.pad_gt(gt, h_pad), vidx) for cam, gt, vidx in cameras]
+
+        def make_step(pcfg_):
+            inner = par.make_sharded_train_step(mcfg, ocfg, pcfg_, scene.extent, mesh, W, H,
+                                                vis_capacity=pcfg_.vis_capacity or None)
+
+            def step(ts_, cam, gt, bg_, vidx, width, height, events=None):
+                return inner(ts_, cam, gt, bg_, vidx)
+
+            return step
+
+        def to_ranks(g):  # canonical full state -> this rank's strided block
+            return par.shard_gaussian_state(par.to_strided(g, n_dev), mesh)
+
+        def to_full(g):  # every rank's strided block -> canonical full state
+            return par.to_canonical(par.gather_gaussian_state(g, mesh), n_dev)
+
+        ts = ts.replace(gaussians=to_ranks(ts.gaussians))
+
+    step_fn = make_step(pcfg)
     rng = np.random.default_rng(seed)
     stack = []
     history = []
     prev_metrics = None  # overflow is checked every iteration, one step late
     window_peak = 0.0  # peak n_instances since the last budget-shrink check
+    vis_peak = 0.0  # the worst rank's visible peak, for the gather cap
     for it in range(ts.iteration + 1, ocfg.iterations + 1):
         if it % 1000 == 0:
             ts = ts.replace(gaussians=gm.oneup_sh_degree(ts.gaussians))
@@ -342,12 +383,17 @@ def train(
 
         if it < ocfg.densify_until_iter:
             if it > ocfg.densify_from_iter and it % ocfg.densification_interval == 0:
-                g2, _ = densify_step(ts.gaussians, generator, ocfg.densify_grad_threshold,
+                g = ts.gaussians if mesh is None else to_full(ts.gaussians)
+                g2, _ = densify_step(g, generator, ocfg.densify_grad_threshold,
                                      0.05, scene.extent, it > ocfg.opacity_reset_interval,
                                      percent_dense=ocfg.percent_dense)
                 if not mcfg.disable_filter3D:
                     g2 = gm.update_3d_filter(g2, cam_list)
-                ts = ts.replace(gaussians=gm.maybe_grow(g2))
+                g2 = gm.maybe_grow(g2)
+                if mesh is not None:
+                    check_replicas(g2, mesh)
+                    g2 = to_ranks(g2)
+                ts = ts.replace(gaussians=g2)
                 mark(events, "densify")
             if it % ocfg.opacity_reset_interval == 0 or (
                     mcfg.white_background and it == ocfg.densify_from_iter):
@@ -361,7 +407,8 @@ def train(
         if it % log_every == 0 or it == ocfg.iterations:
             m = {k: float(v) for k, v in metrics.items()}
             m["iteration"] = it
-            m["n_active"] = int(ts.gaussians.n_active())
+            n_act = ts.gaussians.n_active()
+            m["n_active"] = int(n_act if mesh is None else par.psum(n_act, mesh))
             history.append(m)
         else:
             m = None
@@ -370,13 +417,18 @@ def train(
         # step has finished by the time this one is enqueued
         if prev_metrics is not None:
             window_peak = max(window_peak, float(prev_metrics["n_instances"]))
+            vis_peak = max(vis_peak, float(prev_metrics.get("n_vis_max", 0.0)))
+            cap = ts.gaussians.capacity
             pcfg, changed = autotune_pipeline(
                 pcfg, float(prev_metrics["n_overflow"]), float(prev_metrics["tile_overflow"]),
-                window_peak, ts.gaussians.capacity, shrink_check=(it % 100 == 0))
+                window_peak, cap * n_dev, shrink_check=(it % 100 == 0),
+                vis_ovf=float(prev_metrics.get("n_vis_overflow", 0.0)), vis_peak=vis_peak,
+                per_shard_cap=cap if mesh is not None else 0)
             if it % 100 == 0:
                 window_peak = 0.0
+                vis_peak = 0.0
             if changed:
-                step_fn = make_train_step(mcfg, ocfg, pcfg, spatial_lr_scale=scene.extent)
+                step_fn = make_step(pcfg)
         prev_metrics = metrics
         # callbacks run every iteration; m holds floats at log points, else None
         try:
@@ -384,4 +436,19 @@ def train(
                 cb(it, ts, m)
         except StopTraining:
             break
+    if mesh is not None:
+        ts = ts.replace(gaussians=to_full(ts.gaussians))
     return ts, history
+
+
+def check_replicas(g: gm.GaussianState, mesh):
+    """Raise unless every rank holds the same state after a densification
+    (each densifies the gathered state with the same draws): a checksum of
+    the parameters, the active count and the capacity."""
+    sums = torch.stack([x.detach().to(torch.float64).sum() for _, x in g.params.items()]
+                       + [g.n_active().to(torch.float64),
+                          torch.tensor(float(g.capacity), dtype=torch.float64,
+                                       device=g.device)])
+    if not replicas_agree(sums, mesh):
+        raise RuntimeError("the ranks' densified states differ: the densify draws or "
+                           "compaction were not the same on every rank")

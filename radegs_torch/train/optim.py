@@ -69,3 +69,24 @@ def adam_step(state: GaussianState, grads: GaussianParams, lrs: GroupLRs) -> Gau
         new_p[k], new_m[k], new_v[k] = torch.where(mask, upd, p), m, v
     return state.replace(params=GaussianParams(**new_p), adam_m=GaussianParams(**new_m),
                          adam_v=GaussianParams(**new_v), adam_step=step)
+
+
+def appearance_adam(app, app_m, app_v, it: int, net_lr: float, emb_lr: float) -> dict:
+    """The appearance Adam of loop.py:181-202: dense over every tensor (rows
+    of the embedding table that got no gradient still move with their
+    moments), bias corrections in float32 from the loop's step ``it``.
+    ``app``: the parameters after backward (``.grad`` set or None); returns
+    the new ``app_params``, ``app_m`` and ``app_v``."""
+    bc1 = float(1.0 - torch.tensor(BETA1, dtype=torch.float32) ** it)
+    bc2 = float(1.0 - torch.tensor(BETA2, dtype=torch.float32) ** it)
+
+    def upd(p, m, v, lr):
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        m = BETA1 * m + (1 - BETA1) * g
+        v = BETA2 * v + (1 - BETA2) * g * g
+        return p.detach() - lr * (m / bc1) / (torch.sqrt(v / bc2) + EPS), m, v
+
+    net = {k: upd(app["net"][k], app_m["net"][k], app_v["net"][k], net_lr) for k in app["net"]}
+    emb = upd(app["embeddings"], app_m["embeddings"], app_v["embeddings"], emb_lr)
+    return {key: {"net": {k: v[i] for k, v in net.items()}, "embeddings": emb[i]}
+            for i, key in enumerate(("app_params", "app_m", "app_v"))}

@@ -38,8 +38,8 @@ from radegs_torch.utils.trajectories import ellipse_path
 torch.set_num_threads(2)
 GROUPS = ("ModelConfig", "OptimizationConfig", "PipelineConfig")
 # where the two packages' configurations differ on purpose: the default
-# device, the JAX-only mesh-path / backend knobs, the port's blend blocking
-JAX_ONLY = {"vis_capacity", "backend"}
+# device, the JAX-only backend knob, the port's blend blocking
+JAX_ONLY = {"backend"}
 PORT_ONLY = {"tiles_per_block"}
 DEFAULTS_DIFFER = {"data_device": ("tpu", "cuda")}
 
@@ -168,8 +168,14 @@ def no_tensorboard(monkeypatch):
 
 
 def test_unported_flags_raise(tmp_path, no_tensorboard):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item"):
-        train_cli.main(["--synthetic", "-m", str(tmp_path), "--device", "cpu", "--multichip"])
+    """--multichip is ported (tests/test_torch_parallel_train.py); what it
+    refuses raises before any rank starts: the viewer, which serves from one
+    rank, and NCCL with more ranks than cards."""
+    common = ["--synthetic", "-m", str(tmp_path), "--device", "cpu", "--multichip"]
+    with pytest.raises(ValueError, match="--ip"):
+        train_cli.main([*common, "--ip", "127.0.0.1"])
+    with pytest.raises(ValueError, match="gloo"):
+        train_cli.main([*common, "--world_size", "2", "--dist_backend", "nccl"])
 
 
 def test_train_cli_synthetic_save_checkpoint_resume(tmp_path, no_tensorboard):

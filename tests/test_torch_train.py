@@ -400,12 +400,21 @@ def test_training_improves_psnr():
 
 
 def test_unported_options_raise():
-    # decoupled appearance is ported (tests/test_torch_appearance.py); the
-    # multi-card path is not
-    ts = tgm.empty_state(64, device="cpu")
-    scene = tloop.SceneLike(cameras=[], extent=1.0)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tloop.train(scene, ts, mesh=object(), device="cpu")
+    # decoupled appearance (tests/test_torch_appearance.py) and the
+    # multi-rank path (tests/test_torch_parallel_train.py) are ported; the
+    # multi-rank step renders bands of one image size, so views of two
+    # sizes are refused before any rank communicates
+    from radegs_torch.parallel import Mesh1D
+
+    ts = tgm.create_from_points(np.zeros((4, 3), np.float32), np.full((4, 3), 0.5, np.float32),
+                                capacity=64, device="cpu")
+    cams = [TCamera.look_at([0, 0, -4], [0, 0, 0], [0, 1, 0], 0.9, 0.9, w, 16, device="cpu")
+            for w in (16, 32)]
+    scene = tloop.SceneLike(cameras=[(c, torch.zeros(3, 16, c.width), i)
+                                     for i, c in enumerate(cams)], extent=1.0)
+    mesh = Mesh1D(group=None, rank=0, world=2, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="one size"):
+        tloop.train(scene, ts, mesh=mesh, device="cpu")
 
 
 def test_training_needs_cuda_unless_asked_for_cpu(monkeypatch):
