@@ -211,7 +211,23 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
    ``full_gather_rows`` and the ms per iteration of the 2 ranks
    time-sharing one card (no scaling figure). The kernels line gives each
    kernel's launches there as ``parallel_launches`` (summed over ranks).
+13. The headline bench (``radegs_torch.scripts.bench``, the port of
+   ``bench.py``) in this process at full size (launch counts set to 0
+   before and read after ``bench.main(["--scene", "both"])``): the 100k
+   scene (1600x1200, ``max_per_tile`` 512) with the kernel parity check,
+   then the dense scene (1.2M splats, ``create_from_points`` with the KNN
+   on the card) settled from the package defaults (``--auto``); then
+   ``bench_breakdown`` on the 100k scene. Prints the bench's line and the
+   breakdown's, each scene's set-up seconds (outside the timed window),
+   settle configurations, step ms, instances and peak memory. Fails unless
+   ``kernel_parity_max_err`` <= 1e-4, no timed step drops work, every loss
+   is finite, both values are finite and above 0, ``blend_fwd[G=2]`` and
+   ``blend_bwd[G=2]`` ran once per step of both scenes (first, settle,
+   warm-up, timed) plus once in the parity check, and ``blend_fwd[G=1]`` /
+   ``blend_bwd[G=1]`` once each (the parity check). The kernels line gives
+   each kernel's launches there as ``bench_launches``.
 
+``python3 chip_smoke.py --bench`` runs only the setup and phase 13.
 ``python3 chip_smoke.py --quality [WALL_BUDGET_S]`` runs only the setup and
 the JAX record's protocol at schedule (``QUALITY_r05.json``: 30k
 iterations, evals at 1000, 7000, 15000, 30000, 40 views with every 5th held
@@ -3933,6 +3949,66 @@ def forward_only(workdir, other):
     log(f"forward vs plain, max abs err over phase 2: {max(p[0] for p in parity):.3e}")
 
 
+# ------------------------------------------------------------ phase 13 ----
+
+
+BENCH_PARITY_TOL = 1e-4  # PERF.md section 2's limit for the blend kernels
+
+
+def bench_phase():
+    """Phase 13: the headline bench and its breakdown at full size, checked
+    and reported. Returns the bench's record, the breakdown's fields and
+    the bench's kernel launches."""
+    from radegs_torch.ops import blend
+    from radegs_torch.scripts import bench, bench_breakdown
+
+    t0 = time.perf_counter()
+    # ---- the bench path starts here ----
+    blend.reset_launches()
+    details = {}
+    rec = bench.main(["--scene", "both"], details=details)
+    launches = dict(blend.LAUNCHES)  # the bench path ends here
+    t_bench = time.perf_counter() - t0
+    log(f"phase 13 bench: {json.dumps(rec)}")
+    for scene, d in details.items():
+        steps = [d["first"]] + d["steps"]
+        log(f"phase 13 {scene}: set-up {d['setup_s']:.3f} s (build_scene: "
+            f"create_from_points with the KNN on the card, the 3D filter; outside the timed "
+            f"window); configurations (max_per_tile, instance_budget) {d['configs']}; "
+            f"{d['n_steps']} steps, {d['step_ms']:.3f} ms a timed step (host clock, "
+            f"{bench.ITERS} steps); n_instances "
+            + " ".join(str(int(m["n_instances"])) for m in steps)
+            + f"; overflow at the first step {d['first']['n_overflow']:.0f} instances, "
+            f"{d['first']['tile_overflow']:.0f} tile; losses "
+            + " ".join(f"{m['loss']:.6f}" for m in steps)
+            + f"; peak memory {d['peak_bytes'] / 2**30:.3f} GiB")
+        check(all(m["n_overflow"] == 0 and m["tile_overflow"] == 0 for m in d["steps"]),
+              f"phase 13 {scene}: a timed step dropped work")
+        check(all(math.isfinite(m["loss"]) for m in steps), f"phase 13 {scene}: loss not finite")
+    err = rec["kernel_parity_max_err"]
+    check(err <= BENCH_PARITY_TOL, f"phase 13 kernel parity {err} > {BENCH_PARITY_TOL}")
+    for k in ("value", "value_dense"):
+        check(math.isfinite(rec[k]) and rec[k] > 0, f"phase 13 {k} = {rec[k]}")
+    n_steps = sum(d["n_steps"] for d in details.values())
+    want = {"blend_fwd[G=2]": n_steps + 1, "blend_bwd[G=2]": n_steps + 1,
+            "blend_fwd[G=1]": 1, "blend_bwd[G=1]": 1}
+    log(f"phase 13 bench {t_bench:.1f} s; kernel launches {launches} (want {want})")
+    check(all(launches[k] == v for k, v in want.items()),
+          f"phase 13 launches {launches}, want {want}")
+
+    t1 = time.perf_counter()
+    fields = bench_breakdown.main([])
+    log(f"phase 13 breakdown: {json.dumps(fields)}")
+    full, span = fields["full"], fields["event_span"]
+    log(f"phase 13 breakdown 100k: {full} ms a step on the host clock (the mean), {span} ms "
+        f"from a step's first to its last event (the median); full - event_span "
+        f"{full - span:.2f} ms; {time.perf_counter() - t1:.1f} s")
+    check(all(v is not None and math.isfinite(v) and v >= 0 for v in fields.values()),
+          f"phase 13 breakdown {fields}")
+    log(f"phase 13 {time.perf_counter() - t0:.1f} s")
+    return {"rec": rec, "breakdown": fields, "launches": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -3994,6 +4070,10 @@ def main():
             parallel_only(tmp)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return
+    if sys.argv[1:] == ["--bench"]:
+        bench_phase()
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return
     if sys.argv[1:] == ["--train100k"]:
         with tempfile.TemporaryDirectory(dir=workdir) as tmp:
             train_ab(tmp)
@@ -4011,6 +4091,7 @@ def main():
         probes = bisect_probes(res)
         qual = quality(tmp)
         par12 = parallel_training(tmp, res)
+    bench13 = bench_phase()
     kernels = []
     fwd = res["bwd"]["a"]["fwd"]
     for g, replaces in ((1, "radegs_tpu/ops/pallas_blend.py:263"),
@@ -4063,9 +4144,10 @@ def main():
             "bound_by": row["bound"][1], "library_ms": row["library_ms"],
             "floor_ms": row["floor_ms"],
         })
-    for k in kernels:  # launches on phase 11a's quality path and phase 12b's ranks
+    for k in kernels:  # launches on phase 11a's quality path, 12b's ranks, 13's bench
         k["quality_launches"] = qual["launches"].get(k["name"], 0)
         k["parallel_launches"] = par12["launches"].get(k["name"], 0)
+        k["bench_launches"] = bench13["launches"].get(k["name"], 0)
     log(f"backward kernel vs plain, max rel err per field over phases 2 and 5: "
         f"{max([p[2] for p in parity] + [v['rel'] for v in bwd.values()]):.3e}; vs the "
         f"reference renderer {res['ref_rel']:.3e}")

@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_build_wall = [0.0]  # wall seconds this process spent in builds that ran nvcc
 
 
 def _nvcc() -> str:
@@ -59,6 +60,7 @@ def build(names: list[str] | None = None) -> dict[str, float]:
     names = sources() if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
+    t_start = time.perf_counter()
     for name in names:
         so = library_path(name)
         if so.exists():
@@ -78,9 +80,17 @@ def build(names: list[str] | None = None) -> dict[str, float]:
             os.replace(tmp, so)
         else:
             failed.append(f"{name} (nvcc exit {rc}):\n{so.with_suffix('.log').read_text()}")
+    if jobs:
+        _build_wall[0] += time.perf_counter() - t_start
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return took
+
+
+def build_wall_s() -> float:
+    """Wall seconds this process has spent in ``build`` calls that ran nvcc
+    (0.0 when every kernel it loaded was already built)."""
+    return _build_wall[0]
 
 
 def load(name: str) -> ctypes.CDLL:

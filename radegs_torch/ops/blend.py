@@ -69,6 +69,14 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
+def mark(events: list | None, stage: str):
+    """Record a CUDA event after ``stage`` into ``events`` (when given)."""
+    if events is not None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((stage, ev))
+
+
 def tile_pixel_coords(width: int, height: int, device, tile: int = TILE):
     """Two (T, 256) float32 tensors of pixel x / y for every tile."""
     tiles_x, tiles_y = tile_grid(width, height, tile)
@@ -372,15 +380,18 @@ def _entry(name: str):
 
 
 def blend_forward_packed(binning: TileBinning, inputs, width: int, height: int,
-                         tiles_per_block: int = 2):
+                         tiles_per_block: int = 2, events: list | None = None):
     """Forward blend of every tile as the packed (T, 17, 256) float32 output
     and the (T, 256) int32 ``med_pos``. On CUDA tensors it launches the
     kernel (``tiles_per_block`` tiles per block, 1 or 2) or raises; on CPU
-    tensors it runs ``blend_forward_torch`` over ``binning.tile_gauss``."""
+    tensors it runs ``blend_forward_torch`` over ``binning.tile_gauss``.
+    ``events``: a list that receives a "pack_features" mark after the
+    feature table is packed (CUDA only)."""
     if binning.tile_count.device.type == "cpu":
         raw = blend_forward_torch(_plain_tile_gauss(binning), inputs, width, height)
         return pack_raw(raw), raw["med_pos"]
     feat, T, tiles_x = _kernel_inputs(binning, inputs, width, height, tiles_per_block)
+    mark(events, "pack_features")
     dev = feat.device
     out = torch.empty((T, N_OUT, TILE * TILE), dtype=torch.float32, device=dev)
     med_pos = torch.empty((T, TILE * TILE), dtype=torch.int32, device=dev)
@@ -431,7 +442,7 @@ def instance_segments(gauss_id, P: int):
 
 
 def blend_backward(binning: TileBinning, inputs, fwd_out, cot, width: int, height: int,
-                   tiles_per_block: int = 2, ndc_size=None):
+                   tiles_per_block: int = 2, ndc_size=None, events: list | None = None):
     """Per-Gaussian gradients of the blend (the dict of ``grads_from_rows``).
     On CUDA tensors it launches the kernel pair of ``csrc/blend_bwd.cu`` or
     raises: the per-tile walk writes one row of 25 sums per instance, the
@@ -441,29 +452,43 @@ def blend_backward(binning: TileBinning, inputs, fwd_out, cot, width: int, heigh
     bits. On CPU tensors it runs ``blend_backward_torch`` over
     ``binning.tile_gauss``. ``ndc_size``: (width, height) of the GOF abs
     gradient's NDC scale (default the render's; the kernel reads its width
-    and height for that scale alone)."""
+    and height for that scale alone). ``events``: a list that receives
+    marks after the feature table ("bwd_features"), ``pack_aux``,
+    ``instance_segments``, the walk kernel ("bwd_walk") and the segment sum
+    ("bwd_segment_sum"), which the C entry then launches one at a time
+    (CUDA only)."""
     if binning.tile_count.device.type == "cpu":
         return blend_backward_torch(_plain_tile_gauss(binning), inputs, fwd_out, cot,
                                     width, height, ndc_size)
     ndc_w, ndc_h = ndc_size or (width, height)
     feat, T, tiles_x = _kernel_inputs(binning, inputs, width, height, tiles_per_block)
+    mark(events, "bwd_features")
     dev = feat.device
     P, N = feat.shape[0], binning.gauss_id.numel()
     aux = pack_aux(fwd_out, cot)
     med_pos = fwd_out["med_pos"].to(torch.int32).contiguous()
     build.check_tensor("aux", aux, torch.float32, (T, N_AUX, TILE * TILE), dev)
     build.check_tensor("med_pos", med_pos, torch.int32, (T, TILE * TILE), dev)
+    mark(events, "pack_aux")
     rank, seg = instance_segments(binning.gauss_id, P)
+    mark(events, "instance_segments")
     inst_rows = torch.empty((N, INST_ROW), dtype=torch.float32, device=dev)
     grad = torch.empty((P, N_GRAD), dtype=torch.float32, device=dev)
-    with on_device(dev):
-        rc = _entry("blend_bwd")(
-            feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
-            binning.tile_count.data_ptr(), aux.data_ptr(), med_pos.data_ptr(),
-            rank.data_ptr(), seg.data_ptr(), inst_rows.data_ptr(), grad.data_ptr(), T,
-            tiles_x, N, P, ndc_w, ndc_h, tiles_per_block,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"blend_bwd kernel launch failed with CUDA error {rc}")
+
+    def launch(num_tiles, num_gauss):  # the walk alone (num_gauss 0), the sum alone (T 0)
+        with on_device(dev):
+            rc = _entry("blend_bwd")(
+                feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
+                binning.tile_count.data_ptr(), aux.data_ptr(), med_pos.data_ptr(),
+                rank.data_ptr(), seg.data_ptr(), inst_rows.data_ptr(), grad.data_ptr(),
+                num_tiles, tiles_x, N, num_gauss, ndc_w, ndc_h, tiles_per_block,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"blend_bwd kernel launch failed with CUDA error {rc}")
+
+    launch(T, 0)
+    mark(events, "bwd_walk")
+    launch(0, P)
+    mark(events, "bwd_segment_sum")
     LAUNCHES[f"blend_bwd[G={tiles_per_block}]"] += 1
     return grads_from_rows(grad)

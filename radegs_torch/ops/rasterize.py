@@ -33,6 +33,7 @@ from radegs_torch.ops.binning import (
 from radegs_torch.ops.blend import (
     blend_backward,
     blend_forward_packed,
+    mark,
     tile_pixel_coords,
     unpack_raw,
 )
@@ -46,14 +47,6 @@ def untile(x, width: int, height: int):
     C = x.shape[0]
     img = x.reshape(C, tiles_y, tiles_x, TILE, TILE).permute(0, 1, 3, 2, 4)
     return img.reshape(C, tiles_y * TILE, tiles_x * TILE)[:, :height, :width]
-
-
-def mark(events: list | None, stage: str):
-    """Record a CUDA event after ``stage`` into ``events`` (when given)."""
-    if events is not None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append((stage, ev))
 
 
 def blend_inputs(prep: PreprocessOut):
@@ -77,14 +70,19 @@ def bin_prep(prep: PreprocessOut, width: int, height: int, instance_budget: int,
 
 class BlendFunction(torch.autograd.Function):
     """The blend between the nine per-Gaussian inputs (plus the dummy
-    ``xy_abs``) and the packed raw outputs (T, 17, 256) and ``med_pos``."""
+    ``xy_abs``) and the packed raw outputs (T, 17, 256) and ``med_pos``.
+    ``events`` (a list or None) is carried to the backward, which marks
+    "tail_backward" on entry (autograd has then run the backward of
+    everything after the blend) and passes it to ``blend_backward``."""
 
     @staticmethod
-    def forward(ctx, binning, width, height, tiles_per_block, ndc_size, xy, xy_abs, conic,
-                opacity, rgb, view_point, camera_plane, ray_plane, normal, ts):
+    def forward(ctx, binning, width, height, tiles_per_block, ndc_size, events, xy, xy_abs,
+                conic, opacity, rgb, view_point, camera_plane, ray_plane, normal, ts):
         inputs = (xy, conic, opacity, rgb, view_point, camera_plane, ray_plane, normal, ts)
-        out, med_pos = blend_forward_packed(binning, inputs, width, height, tiles_per_block)
+        out, med_pos = blend_forward_packed(binning, inputs, width, height, tiles_per_block,
+                                            events=events)
         ctx.binning = binning
+        ctx.events = events
         ctx.geometry = (width, height, tiles_per_block, ndc_size)
         ctx.save_for_backward(*inputs, out, med_pos)
         ctx.mark_non_differentiable(med_pos)
@@ -93,14 +91,15 @@ class BlendFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, _g_med_pos):
         # absent cotangents arrive as zeros (materialised by autograd)
+        mark(ctx.events, "tail_backward")
         *inputs, out, med_pos = ctx.saved_tensors
         width, height, tiles_per_block, ndc_size = ctx.geometry
         grads = blend_backward(ctx.binning, tuple(inputs), unpack_raw(out, med_pos),
                                unpack_raw(g_out, None), width, height, tiles_per_block,
-                               ndc_size=ndc_size)
-        return (None, None, None, None, None, grads["xy"], grads["xy_abs"], grads["conic"],
-                grads["opacity"], grads["rgb"], grads["view_point"], grads["camera_plane"],
-                grads["ray_plane"], grads["normal"], grads["ts"])
+                               ndc_size=ndc_size, events=ctx.events)
+        return (None, None, None, None, None, None, grads["xy"], grads["xy_abs"],
+                grads["conic"], grads["opacity"], grads["rgb"], grads["view_point"],
+                grads["camera_plane"], grads["ray_plane"], grads["normal"], grads["ts"])
 
 
 def normalize(raw, camera, bg, width: int | None = None, height: int | None = None,
@@ -164,7 +163,8 @@ def rasterize(
     ``xy_abs``: optional (P, 2) zeros; its gradient is the GOF absolute
     screen-gradient densification statistic.
     ``events``: a list that receives (stage, torch.cuda.Event) after the
-    binning, blend and normalisation stages (CUDA only), for stage timing.
+    binning, blend and normalisation stages (CUDA only), for stage timing,
+    and the blend wrappers' marks: forward and backward (``BlendFunction``).
     ``render_width`` / ``render_height`` / ``band_row0``: render only the
     band of global rows ``band_row0 ..`` (rasterize.py:529-539); ``prep.xy``
     must already be shifted to band-local rows (y - band_row0). The camera
@@ -184,9 +184,9 @@ def rasterize(
     xy, conic, opacity, rgb, view_point, camera_plane, ray_plane, normal, ts = \
         blend_inputs(prep)
     out, med_pos = BlendFunction.apply(binning, W, H, tiles_per_block,
-                                       (camera.width, camera.height), xy, xy_abs, conic,
-                                       opacity, rgb, view_point, camera_plane, ray_plane,
-                                       normal, ts)
+                                       (camera.width, camera.height), events, xy, xy_abs,
+                                       conic, opacity, rgb, view_point, camera_plane,
+                                       ray_plane, normal, ts)
     raw = unpack_raw(out, med_pos)
     mark(events, "blend")
     out = normalize(raw, camera, bg, W, H, band_row0)

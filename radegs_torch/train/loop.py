@@ -102,7 +102,7 @@ def compute_loss(gaussians: gm.GaussianState, app_params, xy_offset, xy_abs, cam
                  max_per_tile=pcfg.max_per_tile,
                  instance_budget=instance_budget(pcfg, gaussians.capacity),
                  tiles_per_block=pcfg.tiles_per_block, device=gaussians.device,
-                 xy_offset=xy_offset, xy_abs=xy_abs)
+                 events=events, xy_offset=xy_offset, xy_abs=xy_abs)
     mark(events, "render")
     image = out["render"]
     if mcfg.use_decoupled_appearance and app_params is not None:
@@ -150,7 +150,9 @@ def make_train_step(mcfg: ModelConfig, ocfg: OptimizationConfig, pcfg: PipelineC
     """The train step for these configurations: ``step(ts, camera, gt_image,
     bg, view_idx, width, height, events=None) -> (ts, metrics)``.
     ``events``: a list that receives (stage, torch.cuda.Event) at the start
-    and after the render, loss, backward, Adam and statistics stages."""
+    and after the render, loss, backward, Adam and statistics stages, with
+    the render's and the blend's own marks between them
+    (``scripts/bench_breakdown.py`` reads them all)."""
 
     def train_step(ts: TrainState, camera, gt_image, bg, view_idx, width, height,
                    events: list | None = None):
