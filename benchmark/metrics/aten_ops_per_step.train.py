@@ -1,0 +1,5 @@
+"""aten:: op calls per traced step, from the profiler's host ops."""
+
+
+def read(record):
+    return record.get("aten_ops_per_step")
