@@ -1,0 +1,9 @@
+"""Median per traced view of the caching allocator's device allocations and
+frees (``num_device_alloc`` + ``num_device_free``), read by the program's
+tracer at the view's start and end."""
+
+from benchmark.metrics import _trace
+
+
+def read(record):
+    return _trace.unit_median("view", "allocs")

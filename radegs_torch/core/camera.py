@@ -13,6 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from radegs_torch.utils import trace
 from radegs_torch.utils.device import resolve_device
 
 
@@ -71,8 +72,9 @@ class Camera:
     def world_view(self):
         """Row-major 4x4 world-to-camera matrix (utils/graphics_utils.py:40-65)."""
         top = torch.cat([self.R.T, self.T[:, None]], dim=1)  # (3,4)
-        bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=torch.float32,
-                              device=self.device)
+        with trace.sync("camera.world_view"):  # a copy from pageable host memory
+            bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=torch.float32,
+                                  device=self.device)
         return torch.cat([top, bottom], dim=0)
 
     @property

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from radegs_torch.utils import trace
+
 
 def quat_to_rotmat_raw(q):
     """Quaternion(s) (w,x,y,z) -> rotation matrices, WITHOUT normalisation
@@ -89,7 +91,9 @@ def fuse_3d_filter(scales, opacity, filter_3d):
     with scales' = sqrt(s^2 + f^2) and opacity' = opacity * sqrt(det ratio)."""
     s2 = torch.square(scales)
     s2f = s2 + torch.square(filter_3d)
-    coef = torch.sqrt(torch.prod(s2 / s2f, dim=-1))
+    ratio = torch.prod(s2 / s2f, dim=-1)
+    trace.sync_node(ratio, "fuse_3d_filter.prod_backward")  # its backward reads the device
+    coef = torch.sqrt(ratio)
     return torch.sqrt(s2f), opacity * coef[..., None]
 
 

@@ -23,13 +23,17 @@ import subprocess
 import time
 from pathlib import Path
 
+from radegs_torch.utils import trace
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "radegs_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
-_build_wall = [0.0]  # wall seconds this process spent in builds that ran nvcc
+# the tracer's counters: "native.builds" counts nvcc builds by library,
+# "native" holds the wall seconds of ``build`` calls that ran nvcc
+NATIVE = trace.counters("native", ("build_s",))
 
 
 def _nvcc() -> str:
@@ -76,12 +80,13 @@ def build(names: list[str] | None = None) -> dict[str, float]:
         rc = proc.wait()
         log.close()
         took[name] = time.perf_counter() - t0
+        trace.count("native.builds", name)
         if rc == 0:
             os.replace(tmp, so)
         else:
             failed.append(f"{name} (nvcc exit {rc}):\n{so.with_suffix('.log').read_text()}")
     if jobs:
-        _build_wall[0] += time.perf_counter() - t_start
+        trace.count("native", "build_s", time.perf_counter() - t_start)
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return took
@@ -89,8 +94,9 @@ def build(names: list[str] | None = None) -> dict[str, float]:
 
 def build_wall_s() -> float:
     """Wall seconds this process has spent in ``build`` calls that ran nvcc
-    (0.0 when every kernel it loaded was already built)."""
-    return _build_wall[0]
+    (0.0 when every kernel it loaded was already built); the tracer's
+    ``native.builds`` names the libraries built."""
+    return float(NATIVE["build_s"])
 
 
 def load(name: str) -> ctypes.CDLL:

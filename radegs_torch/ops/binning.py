@@ -39,6 +39,8 @@ from typing import NamedTuple
 
 import torch
 
+from radegs_torch.utils import trace
+
 TILE = 16
 ALPHA_EPS = 1.0 / 255.0
 
@@ -132,87 +134,98 @@ def bin_gaussians(
     ``conic`` (P,3) and ``opacity`` (P,) enable the exact work cuts.
     ``need_tile_gauss`` builds the rectangular (T, K') layout the plain blend
     walks, K' = the longest run after the cut."""
-    dev = xy.device
-    tiles_x, tiles_y = tile_grid(width, height, tile)
-    num_tiles = tiles_x * tiles_y
+    with trace.span("binning"):
+        dev = xy.device
+        tiles_x, tiles_y = tile_grid(width, height, tile)
+        num_tiles = tiles_x * tiles_y
 
-    precise = conic is not None and opacity is not None
-    if precise:
-        op = opacity[:, 0] if opacity.dim() == 2 else opacity
-        tau = torch.clamp_min(2.0 * torch.log(torch.clamp_min(op, 1e-12) / ALPHA_EPS), 0.0)
-        a, b, c = conic[:, 0], conic[:, 1], conic[:, 2]
-        det = torch.clamp_min(a * c - b * b, 1e-24)
-        # cov = conic^-1: cov00 = c/det, cov11 = a/det
-        ex = torch.minimum(torch.sqrt(tau * c / det), radius)
-        ey = torch.minimum(torch.sqrt(tau * a / det), radius)
-        rx_min, ry_min, w, h, touched = gaussian_rects(
-            xy, radius, tiles_x, tiles_y, tile, extent_x=ex, extent_y=ey)
-    else:
-        rx_min, ry_min, w, h, touched = gaussian_rects(xy, radius, tiles_x, tiles_y, tile)
-    alive = valid & (radius > 0) & (touched > 0)
-    touched = torch.where(alive, touched, 0).to(torch.int64)
+        # --- depth order of the live Gaussians, and their runs' ends ---
+        with trace.span("binning.depth_sort"):
+            precise = conic is not None and opacity is not None
+            if precise:
+                op = opacity[:, 0] if opacity.dim() == 2 else opacity
+                tau = torch.clamp_min(2.0 * torch.log(torch.clamp_min(op, 1e-12) / ALPHA_EPS), 0.0)
+                a, b, c = conic[:, 0], conic[:, 1], conic[:, 2]
+                det = torch.clamp_min(a * c - b * b, 1e-24)
+                # cov = conic^-1: cov00 = c/det, cov11 = a/det
+                ex = torch.minimum(torch.sqrt(tau * c / det), radius)
+                ey = torch.minimum(torch.sqrt(tau * a / det), radius)
+                rx_min, ry_min, w, h, touched = gaussian_rects(
+                    xy, radius, tiles_x, tiles_y, tile, extent_x=ex, extent_y=ey)
+            else:
+                rx_min, ry_min, w, h, touched = gaussian_rects(xy, radius, tiles_x, tiles_y, tile)
+            alive = valid & (radius > 0) & (touched > 0)
+            touched = torch.where(alive, touched, 0).to(torch.int64)
+            depth_key = torch.where(alive, depth, torch.inf)
+            perm = torch.sort(depth_key, stable=True).indices
+            run_end = torch.cumsum(touched[perm], 0)  # inclusive
+            total = (run_end[-1] if run_end.numel()
+                     else torch.zeros((), dtype=torch.int64, device=dev))
 
-    # --- duplicate: runs in depth order (dead gaussians last, zero-length) ---
-    depth_key = torch.where(alive, depth, torch.inf)
-    perm = torch.sort(depth_key, stable=True).indices
-    run_end = torch.cumsum(touched[perm], 0)  # inclusive
-    total = run_end[-1] if run_end.numel() else torch.zeros((), dtype=torch.int64, device=dev)
-    n_slots = min(int(total), instance_budget)  # the one host sync of binning
+        # --- duplicate: runs in depth order (dead gaussians last, zero-length) ---
+        with trace.span("binning.duplicate"):
+            # the first of binning's three host syncs on a card (and a fourth, the
+            # longest run, on the plain path): the slot count sizes the buffers
+            with trace.sync("binning.total"):
+                n_slots = min(int(total), instance_budget)
+            slot = torch.arange(n_slots, dtype=torch.int64, device=dev)
+            run = torch.searchsorted(run_end, slot, right=True)  # owning run per slot
+            g = perm[run]
+            within = slot - (run_end[run] - touched[g])
+            wg = torch.clamp_min(w, 1)[g].to(torch.int64)
+            qd = torch.div(within, wg, rounding_mode="floor")
+            ty = ry_min[g].to(torch.int64) + qd
+            tx = rx_min[g].to(torch.int64) + within - qd * wg
+            keep = torch.ones_like(slot, dtype=torch.bool)
+            if precise:
+                x0 = (tx * tile).to(torch.float32)
+                y0 = (ty * tile).to(torch.float32)
+                qmin = _q_min_over_rect(xy[g, 0], xy[g, 1], a[g], b[g], c[g],
+                                        x0, x0 + (tile - 1), y0, y0 + (tile - 1))
+                # tiny slack so borderline alpha ~ 1/255 contributors never flip
+                # between binning (f32) and the blend's threshold test
+                keep = qmin <= tau[g] * (1.0 + 1e-5) + 1e-6
+            n_culled = (~keep).sum()
 
-    slot = torch.arange(n_slots, dtype=torch.int64, device=dev)
-    run = torch.searchsorted(run_end, slot, right=True)  # owning run per slot
-    g = perm[run]
-    within = slot - (run_end[run] - touched[g])
-    wg = torch.clamp_min(w, 1)[g].to(torch.int64)
-    qd = torch.div(within, wg, rounding_mode="floor")
-    ty = ry_min[g].to(torch.int64) + qd
-    tx = rx_min[g].to(torch.int64) + within - qd * wg
-    keep = torch.ones_like(slot, dtype=torch.bool)
-    if precise:
-        x0 = (tx * tile).to(torch.float32)
-        y0 = (ty * tile).to(torch.float32)
-        qmin = _q_min_over_rect(xy[g, 0], xy[g, 1], a[g], b[g], c[g],
-                                x0, x0 + (tile - 1), y0, y0 + (tile - 1))
-        # tiny slack so borderline alpha ~ 1/255 contributors never flip
-        # between binning (f32) and the blend's threshold test
-        keep = qmin <= tau[g] * (1.0 + 1e-5) + 1e-6
-    n_culled = (~keep).sum()
+        # --- sort by the 64-bit [tile | depth] key ---
+        with trace.span("binning.sort"):
+            with trace.sync("binning.keep", 2):  # each boolean index is a nonzero
+                g, tile_k = g[keep], (ty * tiles_x + tx)[keep]
+            key = (tile_k << 32) | _depth_bits(depth[g])
+            order = torch.sort(key, stable=True).indices
+            gauss_id = g[order].to(torch.int32)
+            tile_id = tile_k[order].to(torch.int32)
 
-    # --- sort by the 64-bit [tile | depth] key ---
-    g, tile_k = g[keep], (ty * tiles_x + tx)[keep]
-    key = (tile_k << 32) | _depth_bits(depth[g])
-    order = torch.sort(key, stable=True).indices
-    gauss_id = g[order].to(torch.int32)
-    tile_id = tile_k[order].to(torch.int32)
+        # --- per-tile ranges: the sorted tile ids' boundaries ---
+        with trace.span("binning.ranges"):
+            bounds = torch.searchsorted(
+                tile_id, torch.arange(num_tiles + 1, dtype=torch.int32, device=dev))
+            tile_start = bounds[:-1].to(torch.int32)
+            count_full = bounds[1:] - bounds[:-1]
+            tile_count = torch.clamp_max(count_full, max_per_tile).to(torch.int32)
 
-    # --- per-tile ranges: the sorted tile ids' boundaries ---
-    bounds = torch.searchsorted(
-        tile_id, torch.arange(num_tiles + 1, dtype=torch.int32, device=dev))
-    tile_start = bounds[:-1].to(torch.int32)
-    count_full = bounds[1:] - bounds[:-1]
-    tile_count = torch.clamp_max(count_full, max_per_tile).to(torch.int32)
+            tile_gauss = None
+            if need_tile_gauss:
+                with trace.sync("binning.max_tile_count"):
+                    K = int(tile_count.max()) if num_tiles else 0
+                cols = torch.arange(K, dtype=torch.int64, device=dev)
+                idx = tile_start.to(torch.int64)[:, None] + cols[None, :]
+                ok = cols[None, :] < tile_count[:, None]
+                src = gauss_id[idx.clamp_max(max(gauss_id.numel() - 1, 0))]  # (T, K)
+                tile_gauss = torch.where(ok, src, -1).to(torch.int32)
 
-    tile_gauss = None
-    if need_tile_gauss:
-        K = int(tile_count.max()) if num_tiles else 0
-        cols = torch.arange(K, dtype=torch.int64, device=dev)
-        idx = tile_start.to(torch.int64)[:, None] + cols[None, :]
-        ok = cols[None, :] < tile_count[:, None]
-        src = gauss_id[idx.clamp_max(max(gauss_id.numel() - 1, 0))]  # (T, K)
-        tile_gauss = torch.where(ok, src, -1).to(torch.int32)
-
-    return TileBinning(
-        gauss_id=gauss_id,
-        tile_id=tile_id,
-        tile_start=tile_start,
-        tile_count=tile_count,
-        tile_gauss=tile_gauss,
-        n_instances=total,
-        n_overflow=torch.clamp_min(total - instance_budget, 0),
-        tile_overflow=(count_full - tile_count).sum(),
-        max_tile_count=count_full.max(),
-        n_culled=n_culled,
-    )
+        return TileBinning(
+            gauss_id=gauss_id,
+            tile_id=tile_id,
+            tile_start=tile_start,
+            tile_count=tile_count,
+            tile_gauss=tile_gauss,
+            n_instances=total,
+            n_overflow=torch.clamp_min(total - instance_budget, 0),
+            tile_overflow=(count_full - tile_count).sum(),
+            max_tile_count=count_full.max(),
+            n_culled=n_culled,
+        )
 
 
 def default_instance_budget(num_points: int, multiplier: int = 8, minimum: int = 1 << 14) -> int:

@@ -34,6 +34,7 @@ import functools
 import torch
 
 from radegs_torch.native import build
+from radegs_torch.utils import trace
 from radegs_torch.utils.device import on_device
 
 CH = 128
@@ -41,8 +42,8 @@ ROWS = 25
 OUT_SHAPE = (8, 256)
 PROBES = ("aligned", "window", "mm_highest", "tri_mm")
 # kernel launches, counted by the wrappers where they launch a kernel and
-# nowhere else
-LAUNCHES = {f"bisect_{p}": 0 for p in PROBES}
+# nowhere else (the tracer's group "launches.bisect")
+LAUNCHES = trace.counters("launches.bisect", [f"bisect_{p}" for p in PROBES])
 
 
 def reset_launches():
@@ -127,7 +128,7 @@ def _run(probe: str, start, count, feat):
                       PROBES.index(probe), T, B, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bisect {probe} kernel launch failed with CUDA error {rc}")
-    LAUNCHES[f"bisect_{probe}"] += 1
+    trace.count("launches.bisect", f"bisect_{probe}")
     return out
 
 

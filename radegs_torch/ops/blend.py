@@ -38,7 +38,9 @@ import torch
 
 from radegs_torch.native import build
 from radegs_torch.ops.binning import TILE, TileBinning, tile_grid
+from radegs_torch.utils import trace
 from radegs_torch.utils.device import on_device
+from radegs_torch.utils.trace import mark
 
 ALPHA_EPS = 1.0 / 255.0
 T_EPS = 1e-4
@@ -59,22 +61,15 @@ RAW_ROWS = {"color_raw": slice(0, 3), "weight": 3, "dist_raw": 4, "coord_raw": s
             "t_final": 15}
 
 # kernel launches per kernel and tiles-per-block variant, counted by the
-# wrappers where they launch a kernel and nowhere else
-LAUNCHES = {"blend_fwd[G=1]": 0, "blend_fwd[G=2]": 0,
-            "blend_bwd[G=1]": 0, "blend_bwd[G=2]": 0}
+# wrappers where they launch a kernel and nowhere else (the tracer's group
+# "launches.blend")
+LAUNCHES = trace.counters("launches.blend", ("blend_fwd[G=1]", "blend_fwd[G=2]",
+                                             "blend_bwd[G=1]", "blend_bwd[G=2]"))
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def mark(events: list | None, stage: str):
-    """Record a CUDA event after ``stage`` into ``events`` (when given)."""
-    if events is not None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append((stage, ev))
 
 
 def tile_pixel_coords(width: int, height: int, device, tile: int = TILE):
@@ -387,23 +382,24 @@ def blend_forward_packed(binning: TileBinning, inputs, width: int, height: int,
     tensors it runs ``blend_forward_torch`` over ``binning.tile_gauss``.
     ``events``: a list that receives a "pack_features" mark after the
     feature table is packed (CUDA only)."""
-    if binning.tile_count.device.type == "cpu":
-        raw = blend_forward_torch(_plain_tile_gauss(binning), inputs, width, height)
-        return pack_raw(raw), raw["med_pos"]
-    feat, T, tiles_x = _kernel_inputs(binning, inputs, width, height, tiles_per_block)
-    mark(events, "pack_features")
-    dev = feat.device
-    out = torch.empty((T, N_OUT, TILE * TILE), dtype=torch.float32, device=dev)
-    med_pos = torch.empty((T, TILE * TILE), dtype=torch.int32, device=dev)
-    with on_device(dev):
-        rc = _entry("blend_fwd")(
-            feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
-            binning.tile_count.data_ptr(), out.data_ptr(), med_pos.data_ptr(), T, tiles_x,
-            tiles_per_block, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"blend_fwd kernel launch failed with CUDA error {rc}")
-    LAUNCHES[f"blend_fwd[G={tiles_per_block}]"] += 1
-    return out, med_pos
+    with trace.span("blend_fwd"):
+        if binning.tile_count.device.type == "cpu":
+            raw = blend_forward_torch(_plain_tile_gauss(binning), inputs, width, height)
+            return pack_raw(raw), raw["med_pos"]
+        feat, T, tiles_x = _kernel_inputs(binning, inputs, width, height, tiles_per_block)
+        mark(events, "pack_features")
+        dev = feat.device
+        out = torch.empty((T, N_OUT, TILE * TILE), dtype=torch.float32, device=dev)
+        med_pos = torch.empty((T, TILE * TILE), dtype=torch.int32, device=dev)
+        with on_device(dev):
+            rc = _entry("blend_fwd")(
+                feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
+                binning.tile_count.data_ptr(), out.data_ptr(), med_pos.data_ptr(), T, tiles_x,
+                tiles_per_block, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"blend_fwd kernel launch failed with CUDA error {rc}")
+        trace.count("launches.blend", f"blend_fwd[G={tiles_per_block}]")
+        return out, med_pos
 
 
 def blend_forward(binning: TileBinning, inputs, width: int, height: int,
@@ -461,17 +457,20 @@ def blend_backward(binning: TileBinning, inputs, fwd_out, cot, width: int, heigh
         return blend_backward_torch(_plain_tile_gauss(binning), inputs, fwd_out, cot,
                                     width, height, ndc_size)
     ndc_w, ndc_h = ndc_size or (width, height)
-    feat, T, tiles_x = _kernel_inputs(binning, inputs, width, height, tiles_per_block)
-    mark(events, "bwd_features")
+    with trace.span("bwd_features"):
+        feat, T, tiles_x = _kernel_inputs(binning, inputs, width, height, tiles_per_block)
+        mark(events, "bwd_features")
     dev = feat.device
     P, N = feat.shape[0], binning.gauss_id.numel()
-    aux = pack_aux(fwd_out, cot)
-    med_pos = fwd_out["med_pos"].to(torch.int32).contiguous()
-    build.check_tensor("aux", aux, torch.float32, (T, N_AUX, TILE * TILE), dev)
-    build.check_tensor("med_pos", med_pos, torch.int32, (T, TILE * TILE), dev)
-    mark(events, "pack_aux")
-    rank, seg = instance_segments(binning.gauss_id, P)
-    mark(events, "instance_segments")
+    with trace.span("pack_aux"):
+        aux = pack_aux(fwd_out, cot)
+        med_pos = fwd_out["med_pos"].to(torch.int32).contiguous()
+        build.check_tensor("aux", aux, torch.float32, (T, N_AUX, TILE * TILE), dev)
+        build.check_tensor("med_pos", med_pos, torch.int32, (T, TILE * TILE), dev)
+        mark(events, "pack_aux")
+    with trace.span("instance_segments"):
+        rank, seg = instance_segments(binning.gauss_id, P)
+        mark(events, "instance_segments")
     inst_rows = torch.empty((N, INST_ROW), dtype=torch.float32, device=dev)
     grad = torch.empty((P, N_GRAD), dtype=torch.float32, device=dev)
 
@@ -486,9 +485,11 @@ def blend_backward(binning: TileBinning, inputs, fwd_out, cot, width: int, heigh
         if rc != 0:
             raise RuntimeError(f"blend_bwd kernel launch failed with CUDA error {rc}")
 
-    launch(T, 0)
-    mark(events, "bwd_walk")
-    launch(0, P)
-    mark(events, "bwd_segment_sum")
-    LAUNCHES[f"blend_bwd[G={tiles_per_block}]"] += 1
+    with trace.span("walk"):
+        launch(T, 0)
+        mark(events, "bwd_walk")
+    with trace.span("segment_sum"):
+        launch(0, P)
+        mark(events, "bwd_segment_sum")
+    trace.count("launches.blend", f"blend_bwd[G={tiles_per_block}]")
     return grads_from_rows(grad)

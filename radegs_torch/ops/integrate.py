@@ -41,6 +41,7 @@ from radegs_torch.ops.binning import (
     tile_grid,
 )
 from radegs_torch.ops.rasterize import untile
+from radegs_torch.utils import trace
 from radegs_torch.utils.device import on_device
 
 ALPHA_EPS = 1.0 / 255.0
@@ -66,8 +67,8 @@ POINTS_PER_ITEM = 32  # points of one tile walked by one warp (ITEM in the kerne
 LATTICE = TILE + 1
 
 # kernel launches, counted by the wrappers where they launch a kernel and
-# nowhere else
-LAUNCHES = {"integrate_image": 0, "integrate_points": 0}
+# nowhere else (the tracer's group "launches.integrate")
+LAUNCHES = trace.counters("launches.integrate", ("integrate_image", "integrate_points"))
 
 
 def reset_launches():
@@ -315,7 +316,7 @@ def integrate_image_rows(binning: TileBinning, feat, width: int, height: int):
             med_pos.data_ptr(), T, tiles_x, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"integrate_image kernel launch failed with CUDA error {rc}")
-    LAUNCHES["integrate_image"] += 1
+    trace.count("launches.integrate", "integrate_image")
     return rows, med_pos
 
 
@@ -469,7 +470,7 @@ def integrate_points_alpha(binning: TileBinning, feat, pts: PointProjection, wid
             out.data_ptr(), n_items, POINTS_PER_ITEM, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"integrate_points kernel launch failed with CUDA error {rc}")
-    LAUNCHES["integrate_points"] += 1
+    trace.count("launches.integrate", "integrate_points")
     return out
 
 

@@ -33,10 +33,11 @@ from radegs_torch.ops.binning import (
 from radegs_torch.ops.blend import (
     blend_backward,
     blend_forward_packed,
-    mark,
     tile_pixel_coords,
     unpack_raw,
 )
+from radegs_torch.utils import trace
+from radegs_torch.utils.trace import mark
 
 NORMALIZE_EPS = 1e-12
 
@@ -94,9 +95,10 @@ class BlendFunction(torch.autograd.Function):
         mark(ctx.events, "tail_backward")
         *inputs, out, med_pos = ctx.saved_tensors
         width, height, tiles_per_block, ndc_size = ctx.geometry
-        grads = blend_backward(ctx.binning, tuple(inputs), unpack_raw(out, med_pos),
-                               unpack_raw(g_out, None), width, height, tiles_per_block,
-                               ndc_size=ndc_size, events=ctx.events)
+        with trace.span("blend_bwd"):
+            grads = blend_backward(ctx.binning, tuple(inputs), unpack_raw(out, med_pos),
+                                   unpack_raw(g_out, None), width, height, tiles_per_block,
+                                   ndc_size=ndc_size, events=ctx.events)
         return (None, None, None, None, None, None, grads["xy"], grads["xy_abs"],
                 grads["conic"], grads["opacity"], grads["rgb"], grads["view_point"],
                 grads["camera_plane"], grads["ray_plane"], grads["normal"], grads["ts"])
@@ -189,8 +191,9 @@ def rasterize(
                                        ray_plane, normal, ts)
     raw = unpack_raw(out, med_pos)
     mark(events, "blend")
-    out = normalize(raw, camera, bg, W, H, band_row0)
-    mark(events, "normalize")
+    with trace.span("normalize"):
+        out = normalize(raw, camera, bg, W, H, band_row0)
+        mark(events, "normalize")
     out.update(radii=prep.radius, visibility_filter=prep.valid & (prep.radius > 0),
                binning=binning)
     return out

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from radegs_torch.ops.conv import conv2d_fp32
+from radegs_torch.utils import trace
 
 C1 = 0.01**2
 C2 = 0.03**2
@@ -38,7 +39,8 @@ def _filter2d(maps, taps):
     """Separable depthwise 'same' Gaussian filter of (C, H, W) maps."""
     C = maps.shape[0]
     k = taps.shape[0]
-    w = torch.as_tensor(taps, dtype=maps.dtype, device=maps.device)
+    with trace.sync("ssim.taps"):  # a copy from pageable host memory
+        w = torch.as_tensor(taps, dtype=maps.dtype, device=maps.device)
     x = conv2d_fp32(maps[None], w.reshape(1, 1, k, 1).expand(C, 1, k, 1),
                     padding=(k // 2, 0), groups=C)
     x = conv2d_fp32(x, w.reshape(1, 1, 1, k).expand(C, 1, 1, k), padding=(0, k // 2),

@@ -17,8 +17,10 @@ from radegs_torch.core.projection import NEAR_PLANE, preprocess_gaussians
 from radegs_torch.models.gaussian_model import GaussianState
 from radegs_torch.ops import integrate as integrate_op
 from radegs_torch.ops.binning import MAX_PER_TILE_CAP, default_instance_budget, round_budget
-from radegs_torch.ops.rasterize import mark, rasterize
+from radegs_torch.ops.rasterize import rasterize
+from radegs_torch.utils import trace
 from radegs_torch.utils.device import resolve_device
+from radegs_torch.utils.trace import mark
 
 
 def _on(device, state: GaussianState, camera):
@@ -78,7 +80,9 @@ def render(
     (gaussian_renderer/__init__.py:29-33).
 
     ``events``: a list that receives (stage, torch.cuda.Event) after the
-    preprocess, binning, blend and normalisation stages (CUDA only).
+    preprocess, binning, blend and normalisation stages (CUDA only); given,
+    the view is traced (``utils/trace.py``: a ``view`` unit, or a span of
+    the step that renders it).
 
     ``instance_budget``: the binning's cap on (Gaussian, tile) pairs. Given,
     it and ``max_per_tile`` are used as they are (training sizes both with
@@ -87,34 +91,41 @@ def render(
     view is binned and blended again with the budget and ``max_per_tile``
     grown to what it measured (``max_per_tile`` up to ``MAX_PER_TILE_CAP``),
     and a view that still drops instances at the caps raises a warning."""
-    camera = _on(device, state, camera)
-    bg = torch.as_tensor(bg, dtype=torch.float32, device=state.device)
-    mark(events, "start")
-    prep = prepare(state, camera, kernel_size, scaling_modifier)
-    if xy_offset is not None:
-        prep = prep.replace(xy=prep.xy + xy_offset)
-    mark(events, "preprocess")
-    grow = instance_budget is None
-    budget = default_instance_budget(state.capacity) if grow else instance_budget
-    while True:
-        out = rasterize(prep, camera, bg, max_per_tile=max_per_tile, instance_budget=budget,
-                        tiles_per_block=tiles_per_block, xy_abs=xy_abs, events=events)
-        if not grow:
-            return out
-        b = out["binning"]
-        n_ovf, t_ovf = int(b.n_overflow), int(b.tile_overflow)
-        # the per-tile demand is measured after the budget's cut: one more
-        # pass when both cut
-        need_budget = round_budget(int(b.n_instances)) if n_ovf else budget
-        need_tile = (min(max(max_per_tile, 1 << (int(b.max_tile_count) - 1).bit_length()),
-                         MAX_PER_TILE_CAP) if t_ovf else max_per_tile)
-        if (need_budget, need_tile) == (budget, max_per_tile):
-            break
-        budget, max_per_tile = need_budget, need_tile
-    if n_ovf or t_ovf:
-        warnings.warn(f"render dropped {n_ovf} instances at the instance budget {budget} and "
-                      f"{t_ovf} at max_per_tile {max_per_tile} (their caps)")
-    return out
+    with trace.unit("view", events, state.device):
+        camera = _on(device, state, camera)
+        bg = torch.as_tensor(bg, dtype=torch.float32, device=state.device)
+        mark(events, "start")
+        with trace.span("preprocess"):
+            prep = prepare(state, camera, kernel_size, scaling_modifier)
+            if xy_offset is not None:
+                prep = prep.replace(xy=prep.xy + xy_offset)
+            mark(events, "preprocess")
+        grow = instance_budget is None
+        budget = default_instance_budget(state.capacity) if grow else instance_budget
+        while True:
+            trace.count("render", "pass")
+            out = rasterize(prep, camera, bg, max_per_tile=max_per_tile,
+                            instance_budget=budget, tiles_per_block=tiles_per_block,
+                            xy_abs=xy_abs, events=events)
+            if not grow:
+                return out
+            b = out["binning"]
+            with trace.sync("render.grow", 2):
+                n_ovf, t_ovf = int(b.n_overflow), int(b.tile_overflow)
+            # the per-tile demand is measured after the budget's cut: one more
+            # pass when both cut
+            with trace.sync("render.grow", (n_ovf > 0) + (t_ovf > 0)):
+                need_budget = round_budget(int(b.n_instances)) if n_ovf else budget
+                need_tile = (min(max(max_per_tile,
+                                     1 << (int(b.max_tile_count) - 1).bit_length()),
+                                 MAX_PER_TILE_CAP) if t_ovf else max_per_tile)
+            if (need_budget, need_tile) == (budget, max_per_tile):
+                break
+            budget, max_per_tile = need_budget, need_tile
+        if n_ovf or t_ovf:
+            warnings.warn(f"render dropped {n_ovf} instances at the instance budget {budget} "
+                          f"and {t_ovf} at max_per_tile {max_per_tile} (their caps)")
+        return out
 
 
 def mark_visible(state: GaussianState, camera, device=None):

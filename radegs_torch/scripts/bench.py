@@ -206,24 +206,18 @@ def settle(ts, cam, gt, bg, pcfg, step_for, capacity, m0):
     return ts, pcfg, step, m0, configs
 
 
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # a Chrome trace's device events
-
-
 def device_busy_ms(trace_events) -> tuple[float, float]:
     """From a Chrome trace's events: (ms in which the device ran a kernel,
     copy or set, the union of their intervals; ms from the first such event
     to the end of the last)."""
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in trace_events
-                   if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+    from radegs_torch.utils import trace
+
+    spans = trace.device_intervals(trace_events)
     if not spans:
         return 0.0, 0.0
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy, lo = busy + hi - lo, a
-        hi = max(hi, b)
-    busy += hi - lo
-    return busy / 1e3, (max(b for _, b in spans) - spans[0][0]) / 1e3
+    span = max(b for _, b in spans) - spans[0][0]
+    idle = sum(b - a for a, b in trace.device_gaps(spans))
+    return (span - idle) / 1e3, span / 1e3
 
 
 def trace_steps(take_step, trace_dir, name, on_card):

@@ -10,7 +10,9 @@ host clock (the mean of the timed steps between two synchronisations);
 ``event_span`` the median span from a step's first event to its last.
 Where the host's dispatch bounds the step, the events follow the host and
 the two agree: the device's idle share then shows only in a trace
-(``--trace`` prints its busy share).
+(``--trace`` prints its busy share and, on a card, the device's idle time
+under each innermost ``radegs::`` span of the tracer,
+``utils/trace.idle_by_span``).
 
     python -m radegs_torch.scripts.bench_breakdown [--iters 10] [--scene dense] [--trace DIR]
 
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -102,6 +105,7 @@ def main(argv=None):
     from radegs_torch.scripts import bench
     from radegs_torch.train.config import PipelineConfig
     from radegs_torch.train.loop import init_train_state, make_train_step
+    from radegs_torch.utils import trace
     from radegs_torch.utils.device import add_device_arg, resolve_device
 
     ap = argparse.ArgumentParser(description="radegs_torch train-step breakdown")
@@ -161,7 +165,15 @@ def main(argv=None):
             ts, m = step(ts, cam, gt, bg, 0, W, H)
             return m["loss"]
 
-        bench.trace_steps(take_step, args.trace, f"breakdown_{args.scene}", on_card)
+        name = f"breakdown_{args.scene}"
+        bench.trace_steps(take_step, args.trace, name, on_card)
+        if on_card:
+            with open(os.path.join(args.trace, f"{name}.json")) as f:
+                idle = trace.idle_by_span(json.load(f)["traceEvents"])
+            print(f"# device idle by innermost span over {bench.TRACE_STEPS} steps:",
+                  flush=True)
+            for span, s in idle.items():
+                print(f"  {span:28s} {s * 1e3:8.3f} ms", flush=True)
     return fields
 
 

@@ -35,7 +35,6 @@ from radegs_torch.ops.binning import (
     default_instance_budget,
     round_budget,
 )
-from radegs_torch.ops.rasterize import mark
 from radegs_torch.ops.ssim import l1_loss, ssim
 from radegs_torch.parallel.comm import replicas_agree
 from radegs_torch.renderer import render
@@ -46,7 +45,9 @@ from radegs_torch.train.config import (
     replace as replace_cfg,
 )
 from radegs_torch.train.optim import GroupLRs, adam_step, appearance_adam, expon_lr
+from radegs_torch.utils import trace
 from radegs_torch.utils.device import resolve_device
+from radegs_torch.utils.trace import mark
 
 @dataclass(frozen=True)
 class TrainState:
@@ -104,27 +105,32 @@ def compute_loss(gaussians: gm.GaussianState, app_params, xy_offset, xy_abs, cam
                  tiles_per_block=pcfg.tiles_per_block, device=gaussians.device,
                  events=events, xy_offset=xy_offset, xy_abs=xy_abs)
     mark(events, "render")
-    image = out["render"]
-    if mcfg.use_decoupled_appearance and app_params is not None:
-        transformed, (top, left, Hc, Wc) = appearance_transform(
-            AppearanceNetwork(), app_params, image, view_idx)
-        ll1 = l1_loss(transformed, gt_image[:, top:top + Hc, left:left + Wc])
-    else:
-        ll1 = l1_loss(image, gt_image)
+    with trace.span("loss"):
+        image = out["render"]
+        if mcfg.use_decoupled_appearance and app_params is not None:
+            transformed, (top, left, Hc, Wc) = appearance_transform(
+                AppearanceNetwork(), app_params, image, view_idx)
+            ll1 = l1_loss(transformed, gt_image[:, top:top + Hc, left:left + Wc])
+        else:
+            ll1 = l1_loss(image, gt_image)
 
-    # normal-consistency regularisation (train.py:141-155)
-    reg_on = float(iteration >= ocfg.regularization_from_iter)
-    if mcfg.use_coord_map:
-        ref_normals = point_double_to_normal(camera, out["expected_coord"], out["median_coord"])
-    else:
-        ref_normals = depth_double_to_normal(camera, out["expected_depth"], out["median_depth"])
-    err = 1.0 - torch.sum(out["normal"][None] * ref_normals, dim=1)  # (2, H, W)
-    depth_ratio = 0.6
-    dn_loss = (1 - depth_ratio) * torch.mean(err[0]) + depth_ratio * torch.mean(err[1])
+        # normal-consistency regularisation (train.py:141-155)
+        reg_on = float(iteration >= ocfg.regularization_from_iter)
+        if mcfg.use_coord_map:
+            ref_normals = point_double_to_normal(camera, out["expected_coord"],
+                                                 out["median_coord"])
+        else:
+            ref_normals = depth_double_to_normal(camera, out["expected_depth"],
+                                                 out["median_depth"])
+        err = 1.0 - torch.sum(out["normal"][None] * ref_normals, dim=1)  # (2, H, W)
+        depth_ratio = 0.6
+        dn_loss = (1 - depth_ratio) * torch.mean(err[0]) + depth_ratio * torch.mean(err[1])
 
-    rgb_loss = (1.0 - ocfg.lambda_dssim) * ll1 + ocfg.lambda_dssim * (1.0 - ssim(image, gt_image))
-    loss = rgb_loss + reg_on * ocfg.lambda_depth_normal * dn_loss
-    mark(events, "loss")
+        with trace.span("loss.ssim"):
+            d_ssim = 1.0 - ssim(image, gt_image)
+        rgb_loss = (1.0 - ocfg.lambda_dssim) * ll1 + ocfg.lambda_dssim * d_ssim
+        loss = rgb_loss + reg_on * ocfg.lambda_depth_normal * dn_loss
+        mark(events, "loss")
 
     b = out["binning"]
     aux = {
@@ -143,6 +149,9 @@ def compute_loss(gaussians: gm.GaussianState, app_params, xy_offset, xy_abs, cam
 
 METRICS = ("loss", "l1", "depth_normal_loss", "psnr", "n_overflow", "tile_overflow",
            "n_instances")
+# the previous step's counters that train()'s autotune reads on the host
+# (the multi-rank step adds the last two)
+AUTOTUNE_READS = ("n_instances", "n_overflow", "tile_overflow", "n_vis_max", "n_vis_overflow")
 
 
 def make_train_step(mcfg: ModelConfig, ocfg: OptimizationConfig, pcfg: PipelineConfig,
@@ -152,51 +161,59 @@ def make_train_step(mcfg: ModelConfig, ocfg: OptimizationConfig, pcfg: PipelineC
     ``events``: a list that receives (stage, torch.cuda.Event) at the start
     and after the render, loss, backward, Adam and statistics stages, with
     the render's and the blend's own marks between them
-    (``scripts/bench_breakdown.py`` reads them all)."""
+    (``scripts/bench_breakdown.py`` reads them all); given, the step is
+    traced (``utils/trace.py``: a ``step`` unit, or a span of the ``train()``
+    iteration that runs it)."""
 
     def train_step(ts: TrainState, camera, gt_image, bg, view_idx, width, height,
                    events: list | None = None):
         g = ts.gaussians
-        it = ts.iteration + 1
-        mark(events, "start")
-        params = g.params.map(lambda x: x.detach().requires_grad_(True))
-        app = (None if ts.app_params is None else
-               map_app(lambda x: x.detach().requires_grad_(True), ts.app_params))
-        xy_offset = torch.zeros((g.capacity, 2), device=g.device, requires_grad=True)
-        xy_abs = torch.zeros((g.capacity, 2), device=g.device, requires_grad=True)
-        loss, aux = compute_loss(g.replace(params=params), app, xy_offset, xy_abs, camera,
-                                 gt_image, bg, it, mcfg, ocfg, pcfg, view_idx, events=events)
-        loss.backward()
-        mark(events, "backward")
+        with trace.unit("step", events, g.device):
+            it = ts.iteration + 1
+            mark(events, "start")
+            params = g.params.map(lambda x: x.detach().requires_grad_(True))
+            app = (None if ts.app_params is None else
+                   map_app(lambda x: x.detach().requires_grad_(True), ts.app_params))
+            xy_offset = torch.zeros((g.capacity, 2), device=g.device, requires_grad=True)
+            xy_abs = torch.zeros((g.capacity, 2), device=g.device, requires_grad=True)
+            loss, aux = compute_loss(g.replace(params=params), app, xy_offset, xy_abs, camera,
+                                     gt_image, bg, it, mcfg, ocfg, pcfg, view_idx, events=events)
+            with trace.span("backward"):
+                loss.backward()
+                mark(events, "backward")
 
-        with torch.no_grad():
-            # Adam on the Gaussian groups with the exp-decayed xyz LR
-            # (gaussian_model.py:338-361)
-            lrs = GroupLRs(
-                xyz=expon_lr(it, ocfg.position_lr_init * spatial_lr_scale,
-                             ocfg.position_lr_final * spatial_lr_scale,
-                             ocfg.position_lr_max_steps,
-                             lr_delay_mult=ocfg.position_lr_delay_mult),
-                f_dc=ocfg.feature_lr, f_rest=ocfg.feature_lr / 20.0,
-                opacity=ocfg.opacity_lr, scaling=ocfg.scaling_lr, rotation=ocfg.rotation_lr)
-            grads = params.map(lambda x: torch.zeros_like(x) if x.grad is None else x.grad)
-            g = adam_step(g, grads, lrs)
-            app_state = {}
-            if app is not None:
-                app_state = appearance_adam(app, ts.app_m, ts.app_v, it,
-                                           ocfg.appearance_network_lr,
-                                           ocfg.appearance_embeddings_lr)
-            mark(events, "adam")
+            with torch.no_grad():
+                # Adam on the Gaussian groups with the exp-decayed xyz LR
+                # (gaussian_model.py:338-361)
+                with trace.span("adam"):
+                    lrs = GroupLRs(
+                        xyz=expon_lr(it, ocfg.position_lr_init * spatial_lr_scale,
+                                     ocfg.position_lr_final * spatial_lr_scale,
+                                     ocfg.position_lr_max_steps,
+                                     lr_delay_mult=ocfg.position_lr_delay_mult),
+                        f_dc=ocfg.feature_lr, f_rest=ocfg.feature_lr / 20.0,
+                        opacity=ocfg.opacity_lr, scaling=ocfg.scaling_lr,
+                        rotation=ocfg.rotation_lr)
+                    grads = params.map(lambda x: torch.zeros_like(x) if x.grad is None else x.grad)
+                    g = adam_step(g, grads, lrs)
+                    app_state = {}
+                    if app is not None:
+                        app_state = appearance_adam(app, ts.app_m, ts.app_v, it,
+                                                   ocfg.appearance_network_lr,
+                                                   ocfg.appearance_embeddings_lr)
+                    mark(events, "adam")
 
-            # densification statistics (train.py:186-188): the screen
-            # gradient arrives in pixel units -> NDC units via (W/2, H/2)
-            ndc_scale = torch.tensor([width * 0.5, height * 0.5], dtype=torch.float32,
-                                     device=g.device)
-            g = gm.add_densification_stats(g, xy_offset.grad * ndc_scale, xy_abs.grad[:, 0],
-                                           aux["visibility"])
-            g = gm.update_max_radii(g, aux["radii"], aux["visibility"])
-            mark(events, "stats")
-        return ts.replace(gaussians=g, iteration=it, **app_state), {k: aux[k] for k in METRICS}
+                # densification statistics (train.py:186-188): the screen
+                # gradient arrives in pixel units -> NDC units via (W/2, H/2)
+                with trace.span("stats"):
+                    with trace.sync("stats.ndc_scale"):  # a copy from pageable host memory
+                        ndc_scale = torch.tensor([width * 0.5, height * 0.5], dtype=torch.float32,
+                                                 device=g.device)
+                    g = gm.add_densification_stats(g, xy_offset.grad * ndc_scale,
+                                                   xy_abs.grad[:, 0], aux["visibility"])
+                    g = gm.update_max_radii(g, aux["radii"], aux["visibility"])
+                    mark(events, "stats")
+            return ts.replace(gaussians=g, iteration=it, **app_state), {k: aux[k] for k in METRICS}
 
     return train_step
 
@@ -381,56 +398,63 @@ def train(
             stack = list(rng.permutation(len(cameras)))
         cam, gt, vidx = cameras[int(stack.pop())]
         events = [] if step_events is not None else None
-        ts, metrics = step_fn(ts, cam, gt, bg, vidx, cam.width, cam.height, events=events)
+        with trace.unit("iteration", events, dev):
+            ts, metrics = step_fn(ts, cam, gt, bg, vidx, cam.width, cam.height, events=events)
 
-        if it < ocfg.densify_until_iter:
-            if it > ocfg.densify_from_iter and it % ocfg.densification_interval == 0:
-                g = ts.gaussians if mesh is None else to_full(ts.gaussians)
-                g2, _ = densify_step(g, generator, ocfg.densify_grad_threshold,
-                                     0.05, scene.extent, it > ocfg.opacity_reset_interval,
-                                     percent_dense=ocfg.percent_dense)
-                if not mcfg.disable_filter3D:
-                    g2 = gm.update_3d_filter(g2, cam_list)
-                g2 = gm.maybe_grow(g2)
-                if mesh is not None:
-                    check_replicas(g2, mesh)
-                    g2 = to_ranks(g2)
-                ts = ts.replace(gaussians=g2)
-                mark(events, "densify")
-            if it % ocfg.opacity_reset_interval == 0 or (
-                    mcfg.white_background and it == ocfg.densify_from_iter):
-                ts = ts.replace(gaussians=gm.reset_opacity(ts.gaussians))
-                mark(events, "reset_opacity")
-        elif it % 100 == 0 and not mcfg.disable_filter3D and it < ocfg.iterations - 100:
-            ts = ts.replace(gaussians=gm.update_3d_filter(ts.gaussians, cam_list))
-        if events is not None:
-            step_events.append(events)
+            if it < ocfg.densify_until_iter:
+                if it > ocfg.densify_from_iter and it % ocfg.densification_interval == 0:
+                    with trace.span("train.densify"):
+                        g = ts.gaussians if mesh is None else to_full(ts.gaussians)
+                        g2, _ = densify_step(g, generator, ocfg.densify_grad_threshold,
+                                             0.05, scene.extent, it > ocfg.opacity_reset_interval,
+                                             percent_dense=ocfg.percent_dense)
+                        if not mcfg.disable_filter3D:
+                            g2 = gm.update_3d_filter(g2, cam_list)
+                        g2 = gm.maybe_grow(g2)
+                        if mesh is not None:
+                            check_replicas(g2, mesh)
+                            g2 = to_ranks(g2)
+                        ts = ts.replace(gaussians=g2)
+                        mark(events, "densify")
+                if it % ocfg.opacity_reset_interval == 0 or (
+                        mcfg.white_background and it == ocfg.densify_from_iter):
+                    ts = ts.replace(gaussians=gm.reset_opacity(ts.gaussians))
+                    mark(events, "reset_opacity")
+            elif it % 100 == 0 and not mcfg.disable_filter3D and it < ocfg.iterations - 100:
+                ts = ts.replace(gaussians=gm.update_3d_filter(ts.gaussians, cam_list))
+            if events is not None:
+                step_events.append(events)
 
-        if it % log_every == 0 or it == ocfg.iterations:
-            m = {k: float(v) for k, v in metrics.items()}
-            m["iteration"] = it
-            n_act = ts.gaussians.n_active()
-            m["n_active"] = int(n_act if mesh is None else par.psum(n_act, mesh))
-            history.append(m)
-        else:
-            m = None
+            if it % log_every == 0 or it == ocfg.iterations:
+                with trace.sync("train.log", len(metrics) + 1):
+                    m = {k: float(v) for k, v in metrics.items()}
+                    m["iteration"] = it
+                    n_act = ts.gaussians.n_active()
+                    m["n_active"] = int(n_act if mesh is None else par.psum(n_act, mesh))
+                history.append(m)
+            else:
+                m = None
 
-        # autotune the work buffers against the PREVIOUS step's counters: that
-        # step has finished by the time this one is enqueued
-        if prev_metrics is not None:
-            window_peak = max(window_peak, float(prev_metrics["n_instances"]))
-            vis_peak = max(vis_peak, float(prev_metrics.get("n_vis_max", 0.0)))
-            cap = ts.gaussians.capacity
-            pcfg, changed = autotune_pipeline(
-                pcfg, float(prev_metrics["n_overflow"]), float(prev_metrics["tile_overflow"]),
-                window_peak, cap * n_dev, shrink_check=(it % 100 == 0),
-                vis_ovf=float(prev_metrics.get("n_vis_overflow", 0.0)), vis_peak=vis_peak,
-                per_shard_cap=cap if mesh is not None else 0)
-            if it % 100 == 0:
-                window_peak = 0.0
-                vis_peak = 0.0
-            if changed:
-                step_fn = make_step(pcfg)
+            # autotune the work buffers against the PREVIOUS step's counters:
+            # that step has finished by the time this one is enqueued
+            if prev_metrics is not None:
+                with trace.span("train.autotune"):
+                    with trace.sync("train.autotune",
+                                    sum(k in prev_metrics for k in AUTOTUNE_READS)):
+                        prev = {k: float(prev_metrics.get(k, 0.0)) for k in AUTOTUNE_READS}
+                    window_peak = max(window_peak, prev["n_instances"])
+                    vis_peak = max(vis_peak, prev["n_vis_max"])
+                    cap = ts.gaussians.capacity
+                    pcfg, changed = autotune_pipeline(
+                        pcfg, prev["n_overflow"], prev["tile_overflow"], window_peak,
+                        cap * n_dev, shrink_check=(it % 100 == 0),
+                        vis_ovf=prev["n_vis_overflow"], vis_peak=vis_peak,
+                        per_shard_cap=cap if mesh is not None else 0)
+                    if it % 100 == 0:
+                        window_peak = 0.0
+                        vis_peak = 0.0
+                    if changed:
+                        step_fn = make_step(pcfg)
         prev_metrics = metrics
         # callbacks run every iteration; m holds floats at log points, else None
         try:
