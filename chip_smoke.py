@@ -22,8 +22,16 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
 4. Converged scale: the bench's dense scene (1.2M surface splats at opacity
    0.8, 1600x1200, max_per_tile 8192, ~8M instances per view), 2 views with
    the instance budget set from the measured demand. Launch counts are set
-   to 0 before phase 3 and read after phase 4 (the serving path).
-5. Kernels alone. The backward against the exact reference renderer
+   to 0 before phase 3 and read after phase 4 (the serving path); every
+   view's preprocess is the kernel's (``csrc/preprocess_fwd.cu``: the views
+   need no gradient), the plain version's counter does not move.
+5. Kernels alone. The preprocess kernel at the dense view 0 against its
+   plain version (``ops/preprocess.preprocess_torch``), with and without
+   the inverse ray-space covariance: every field the same bits (floats on
+   the rows valid on both sides; radius and flags on the active rows), as
+   tests/test_torch_preprocess_kernel.py holds it; then alone in CUDA
+   graphs beside its bytes bound (``preprocess_bytes``) and the plain
+   version's time. The backward against the exact reference renderer
    (``rasterize`` with the kernels vs autograd through
    ``ops.reference.render_reference``, 256 Gaussians at 128x96: maps within
    ABS_TOL, gradients within 1e-4 x max |reference|). Then both blend
@@ -58,7 +66,9 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
 7. The mesh path at full width, all on the card (launch counts set to 0
    before 7b and read after 7e: the mesh path).
    a. The integrate kernels against their plain versions on both parity
-      scenes (radius-only binning, the inverse ray-space covariance): B5
+      scenes (radius-only binning, the inverse ray-space covariance; each
+      scene a state whose preprocess is ``renderer.prepare``'s, so the
+      preprocess kernel makes the integrate kernels' inputs): B5
       (``integrate_image``) and B6 (``integrate_points``, ~20k query points:
       near the splats, in the frustum, outside the image, behind the
       camera). The float rows and ``alpha_integrated`` within abs 1e-4, the
@@ -282,6 +292,16 @@ render and mesh CLIs) and phase 10.
 the configured G and phase 6's 100 iterations of the 100k scene and
 ``python3 chip_smoke.py --tetra`` only phase 7c: copied into a checkout of
 another commit and run there, each compares the two in one call.
+``python3 chip_smoke.py --preprocess`` runs only the setup, phases 3-4 with
+phase 5's preprocess check, phase 7a (the kernel once per parity scene)
+and phase 7b (the kernel once per view); its kernels line holds the
+preprocess kernel's two rows alone. In the default run the two rows
+(``preprocess_fwd[sh=3,inv=0]`` and ``[sh=3,inv=1]``, the latter with the
+inverse ray-space covariance) give the kernel's launches on the serving
+path (``launches``) and on the paths of phases 6, 7, 8 and 10
+(``train_launches``, ``mesh_launches``, ``cli_launches``,
+``eval_launches``) beside 11a, 12b and 13's; a log line gives every SH
+degree's launches by path.
 
 Every phase that fails raises, and the script exits non-zero without the
 result lines. The last three lines are the card's name and power limit, a
@@ -1301,15 +1321,16 @@ def report(label, rows, budget, launches, peak):
     return med
 
 
-def full_scale(workdir):
-    """Phases 3 and 4 (the serving path at full width, then converged scale)
-    and phase 5 (the backward against the reference renderer, then both
-    kernels at their three shapes)."""
+def serving(workdir):
+    """Phases 3 and 4: the serving path at full width, then converged scale,
+    the preprocess kernel on its path (each view needs no gradient)."""
     from radegs_torch.models import gaussian_model as gm
     from radegs_torch.ops import blend
+    from radegs_torch.ops import preprocess as pp
     from radegs_torch.ops.binning import default_instance_budget, round_budget
     from radegs_torch.ops.rasterize import bin_prep
     from radegs_torch.renderer import prepare
+    from radegs_torch.utils import trace
 
     dev = torch.device(DEVICE)
     cams = orbit_cameras(N_VIEWS, dev)
@@ -1321,6 +1342,8 @@ def full_scale(workdir):
     cap = scene_ply(path, "100k")
     log(f"phase 3 scene written in {time.perf_counter() - t0:.1f} s")
     blend.reset_launches()  # the serving path starts here
+    pp.reset_launches()
+    n_plain = trace.counters("preprocess").get("plain", 0)
     torch.cuda.reset_peak_memory_stats()
     state = gm.update_3d_filter(
         gm.load_gaussian_ply(path, sh_degree=3, capacity=cap, device=dev), cams)
@@ -1357,20 +1380,138 @@ def full_scale(workdir):
     results["dense"] = report(f"phase 4 dense 1.2M 1600x1200 G={g}", rowsd, dbudget,
                               blend.LAUNCHES[f"blend_fwd[G={g}]"] - before,
                               torch.cuda.max_memory_allocated())
-    launches = dict(blend.LAUNCHES)  # the serving path ends here
+    launches = {**dict(blend.LAUNCHES), **dict(pp.LAUNCHES)}  # the serving path ends here
     log(f"serving path kernel launches: {launches}")
     check(all(launches[f"blend_fwd[G={g}]"] > 0 for g in (1, 2)),
           f"a forward kernel never ran on the serving path: {launches}")
+    check(pp.LAUNCHES["preprocess_fwd[sh=3,inv=0]"] > 0
+          and trace.counters("preprocess").get("plain", 0) == n_plain,
+          f"the serving path ran the plain preprocess: {launches}")
+    results["pre"] = preprocess_check(state, cams[0], "phase 5 dense view 0")
     del state
     torch.cuda.empty_cache()
+    results.update(launches=launches, path=path, dpath=dpath, cap=cap, dcap=dcap, cams=cams,
+                   budget=budget, dbudget=dbudget)
+    return results
 
+
+def full_scale(workdir):
+    """Phases 3 and 4 (``serving``) and phase 5 (the preprocess kernel at
+    the dense view 0, the backward against the reference renderer, then both
+    blend kernels at their three shapes)."""
+    results = serving(workdir)
     # ---- phase 5: the kernels alone at three shapes, the forward's and the
     # backward's (launches here are not counted) ----
     ref_rel = reference_check()
-    results.update(launches=launches, path=path, dpath=dpath, cap=cap, dcap=dcap, cams=cams,
-                   budget=budget, dbudget=dbudget, ref_rel=ref_rel,
-                   bwd=backward_shapes(path, cap, dpath, dcap, cams, {}))
+    r = results
+    results.update(ref_rel=ref_rel, bwd=backward_shapes(r["path"], r["cap"], r["dpath"],
+                                                        r["dcap"], r["cams"], {}))
     return results
+
+
+# the least bytes of the preprocess kernel: an active row reads its 59
+# parameter floats (SH degree 3), its 3D filter and its active flag, an
+# inactive row its flag alone; every row writes 24 feature floats, its
+# radius and two flags, and 9 floats of invraycov when asked
+def preprocess_bytes(state, inv):
+    n, P = int(state.active.sum()), state.capacity
+    m = (state.max_sh_degree + 1) ** 2
+    return n * 4 * (3 + 3 * m + 3 + 4 + 1 + 1) + P + P * (4 * (24 + 1 + 9 * inv) + 2)
+
+
+PRE_FIELDS = ("xy", "depth", "view_point", "conic", "opacity", "rgb", "camera_plane",
+              "ray_plane", "normal", "ts")
+
+
+def compare_preprocess(got, want, active):
+    """Rows whose bits differ: of each float field over the rows valid on
+    both sides (``invraycov`` too when asked), of ``radius``, ``valid`` and
+    ``well_conditioned`` over the active rows."""
+    both = got.valid & want.valid
+    out = {f: int((getattr(got, f) != getattr(want, f))[active].sum())
+           for f in ("radius", "valid", "well_conditioned")}
+    for f in PRE_FIELDS + (("invraycov",) if got.invraycov is not None else ()):
+        a = getattr(got, f)[both]
+        b = getattr(want, f)[both].reshape(a.shape)
+        out[f] = int((a.view(torch.int32) != b.view(torch.int32)).reshape(len(a), -1)
+                     .any(1).sum())
+    return out
+
+
+def preprocess_check(state, cam, label, reps=20):
+    """The preprocess kernel at one view: against its plain version with
+    and without the inverse ray-space covariance, then alone in a CUDA graph
+    (``reps`` launches) beside its bytes bound, and the plain version's ms
+    per call (CUDA events)."""
+    from radegs_torch.ops import preprocess as pp
+
+    res = {}
+    with torch.no_grad():
+        for inv in (False, True):
+            want = pp.preprocess_torch(state, cam, 0.1, 1.0, inv)
+            got = pp.preprocess_forward(state, cam, 0.1, 1.0, inv)
+            torch.cuda.synchronize()
+            e = compare_preprocess(got, want, state.active)
+            del got, want
+            log(f"{label} preprocess kernel vs plain (invraycov {inv}), rows with other "
+                "bits: " + ", ".join(f"{k} {v}" for k, v in e.items()))
+            check(not any(e.values()),
+                  f"{label}: the preprocess kernel is not the plain version bit for bit: {e}")
+        for inv in (False, True):
+            res[f"alone_{int(inv)}"] = graph_ms(
+                lambda: pp.preprocess_forward(state, cam, 0.1, 1.0, inv), reps)
+            res[f"bound_{int(inv)}"] = preprocess_bytes(state, inv) / PEAK_BYTES * 1e3
+        res["plain_ms"] = time_ms(lambda: pp.preprocess_torch(state, cam, 0.1), 3)
+    log(f"{label} preprocess kernel alone (CUDA graph of {reps}): {res['alone_0']:.4f} ms, "
+        f"with invraycov {res['alone_1']:.4f} ms; bytes bound {res['bound_0']:.4f} / "
+        f"{res['bound_1']:.4f} ms ({res['alone_0'] / res['bound_0']:.2f}x / "
+        f"{res['alone_1'] / res['bound_1']:.2f}x); plain version {res['plain_ms']:.3f} ms "
+        f"({int(state.active.sum())} active of {state.capacity} rows)")
+    return res
+
+
+def preprocess_rows(pre, launches):
+    """The kernels-list rows of the preprocess kernel at SH degree 3 (the
+    dense view 0), without and with the inverse ray-space covariance;
+    ``launches`` holds the serving path's counts."""
+    return [{"name": f"preprocess_fwd[sh=3,inv={inv}]", "route": "cuda",
+             "source": "radegs_torch/csrc/preprocess_fwd.cu",
+             "replaces": "none (the JAX preprocess is XLA)",
+             "launches": launches[f"preprocess_fwd[sh=3,inv={inv}]"], "same_bits": True,
+             "alone_ms": pre[f"alone_{inv}"], "plain_ms": pre["plain_ms"] if inv == 0 else None,
+             "bound_ms": pre[f"bound_{inv}"], "bound_by": "bytes", "library_ms": None}
+            for inv in (0, 1)]
+
+
+def preprocess_only(workdir):
+    """``--preprocess``: phases 3-4 (the serving path) with the preprocess
+    kernel at the dense view 0, phase 7a and phase 7b."""
+    from radegs_torch.ops import blend
+    from radegs_torch.ops import integrate as ig
+    from radegs_torch.ops import preprocess as pp
+
+    res = serving(workdir)
+    pp.reset_launches()
+    parity = [integrate_parity(), integrate_parity(250, 190, (1.6, 0, 0))]
+    n_7a = pp.LAUNCHES["preprocess_fwd[sh=0,inv=1]"]
+    check(n_7a == 2, f"7a: the preprocess kernel ran {n_7a} times for 2 parity scenes")
+    ig.reset_launches()  # the TSDF path starts here
+    blend.reset_launches()
+    pp.reset_launches()
+    views = mesh_views()
+    state = load_scene(res["dpath"], res["dcap"], views)
+    _, verts, _ = mesh_tsdf(state, views, workdir, "7b TSDF of the dense 1.2M scene")
+    mesh_geometry(verts, "7b TSDF")
+    n_pre = pp.LAUNCHES["preprocess_fwd[sh=3,inv=0]"]
+    log(f"7b preprocess launches {dict(pp.LAUNCHES)}")
+    check(n_pre == len(views), f"7b: the preprocess kernel ran {n_pre} times for {len(views)} "
+          "views")
+    rows = preprocess_rows(res["pre"], res["launches"])
+    for row in rows:
+        row.update(tsdf_launches=pp.LAUNCHES[row["name"]])
+    log(f"7a preprocess_fwd[sh=0,inv=1] launches {n_7a}, integrate max abs err "
+        f"{max(p[0] for p in parity):.3e}")
+    return rows
 
 
 def nerf_extent(cameras):
@@ -1438,6 +1579,7 @@ def train_100k(path, cap, cams, budget):
     at 1600x1200 (at ``default_g()``), checked and reported. Returns its numbers and the
     scene extent."""
     from radegs_torch.ops import blend
+    from radegs_torch.ops import preprocess as pp
     from radegs_torch.train.config import ModelConfig, OptimizationConfig, PipelineConfig
     from radegs_torch.train.loop import train
 
@@ -1451,6 +1593,7 @@ def train_100k(path, cap, cams, budget):
 
     # ---- the training path starts here ----
     blend.reset_launches()
+    pp.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     step_events, host = [], []
     t0 = time.perf_counter()
@@ -1510,6 +1653,7 @@ def training(res):
 
     from radegs_torch.models import gaussian_model as gm
     from radegs_torch.ops import blend
+    from radegs_torch.ops import preprocess as pp
     from radegs_torch.ops.binning import round_budget
     from radegs_torch.train.config import ModelConfig, OptimizationConfig, PipelineConfig
     from radegs_torch.train.loop import TrainState, make_train_step
@@ -1547,15 +1691,17 @@ def training(res):
         drows.append((g, wall, stages, int(met["n_instances"])))
     dpeak = torch.cuda.max_memory_allocated()
     launches = dict(blend.LAUNCHES)  # the training path ends here
+    pre_launches = dict(pp.LAUNCHES)
     for g, wall, stages, n in drows:
         log(f"phase 6 dense train step G={g}: {wall:.3f} ms (host clock), "
             + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f" ms; {n} instances")
     log(f"phase 6 dense peak memory {dpeak / 2**30:.3f} GiB; training path kernel launches "
-        f"{launches}")
+        f"{launches}, preprocess {pre_launches}")
     check(all(v > 0 for v in launches.values()), f"a kernel never ran on the training path: "
           f"{launches}")
 
-    results.update(launches=launches, dense_rows=drows, dense_peak=dpeak)
+    results.update(launches=launches, pre_launches=pre_launches, dense_rows=drows,
+                   dense_peak=dpeak)
     return results
 
 
@@ -1666,26 +1812,28 @@ def compare_image(rows_k, med_k, rows_p, med_p):
 
 def integrate_parity(W=256, H=256, target=(0, 0, 0)):
     """Phase 7a: B5 and B6 against their plain versions on the parity scene
-    of phase 2 (with the inverse ray-space covariance, radius-only binning)."""
+    of phase 2 (with the inverse ray-space covariance, radius-only binning),
+    the scene a state (log-scales, opacity logits, no 3D filter) whose
+    preprocess is ``prepare``'s, as ``integrate_prepare``'s: on a card the
+    preprocess kernel makes the integrate kernels' inputs."""
     from radegs_torch.core.camera import Camera
-    from radegs_torch.core.projection import preprocess_gaussians
+    from radegs_torch.models import gaussian_model as gm
     from radegs_torch.ops import integrate as ig
     from radegs_torch.ops.binning import bin_gaussians
+    from radegs_torch.renderer import prepare
 
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(3)
     P = 2000
     cam = Camera.look_at([0, 0.3, -4.0], target, [0, 1, 0], 0.9, 0.9, W, H, device=dev)
-
-    def t(x):
-        return torch.tensor(np.asarray(x, np.float32), device=dev)
-
     centres = rng.normal(size=(P, 3)) * 0.9
-    prep = preprocess_gaussians(
-        t(centres), t(rng.uniform(0.02, 0.25, (P, 3))),
-        t(np.tile([1.0, 0, 0, 0], (P, 1))), t(rng.uniform(0.05, 0.95, (P, 1))),
-        t(rng.uniform(0, 1, (P, 1, 3))), sh_degree=0, camera=cam, kernel_size=0.1,
-        compute_invraycov=True)
+    scales, opac = rng.uniform(0.02, 0.25, (P, 3)), rng.uniform(0.05, 0.95, (P, 1))
+    shs, quats = rng.uniform(0, 1, (P, 1, 3)), np.tile([1.0, 0, 0, 0], (P, 1))
+    state = gm.state_from_arrays(centres, shs, np.zeros((P, 0, 3)), np.log(scales), quats,
+                                 np.log(opac / (1 - opac)), np.ones(P, bool), np.zeros((P, 1)),
+                                 0, 0, device=dev)
+    with torch.no_grad():
+        prep = prepare(state, cam, 0.1, compute_invraycov=True)
     binning = bin_gaussians(prep.xy, prep.radius, prep.depth, prep.valid, W, H,
                             instance_budget=1 << 16, max_per_tile=2048, need_tile_gauss=True)
     feat = ig.image_features(prep)
@@ -2277,10 +2425,12 @@ def mesh_path(res, workdir):
     alone."""
     from radegs_torch.ops import blend
     from radegs_torch.ops import integrate as ig
+    from radegs_torch.ops import preprocess as pp
 
     parity = [integrate_parity(), integrate_parity(250, 190, (1.6, 0, 0))]
     ig.reset_launches()  # the mesh path starts here
     blend.reset_launches()
+    pp.reset_launches()
     views = mesh_views()
     state = load_scene(res["dpath"], res["dcap"], views)
     tsdf, verts, _ = mesh_tsdf(state, views, workdir, "7b TSDF of the dense 1.2M scene")
@@ -2294,10 +2444,14 @@ def mesh_path(res, workdir):
     del state
     torch.cuda.empty_cache()
     witness = mesh_witness(workdir)
-    launches = {**dict(ig.LAUNCHES), **dict(blend.LAUNCHES)}  # the mesh path ends here
+    # the mesh path ends here
+    launches = {**dict(ig.LAUNCHES), **dict(blend.LAUNCHES), **dict(pp.LAUNCHES)}
     log(f"mesh path kernel launches: {launches}")
     check(all(ig.LAUNCHES[k] > 0 for k in ig.LAUNCHES), f"an integrate kernel never ran on "
           f"the mesh path: {launches}")
+    check(all(any(v > 0 for k, v in pp.LAUNCHES.items() if k.endswith(f"inv={i}]"))
+              for i in (0, 1)), f"the preprocess kernel did not serve TSDF (inv=0) and tetra "
+          f"(inv=1) on the mesh path: {launches}")
     alone = integrate_alone(res, (tetra["stats"]["n_seeds_decimated"],
                                   tetra["stats"]["n_crossing"]))
     return dict(parity=parity, tsdf=tsdf, tetra=tetra, witness=witness, launches=launches,
@@ -2401,6 +2555,7 @@ def entry_points(workdir, tr_res):
     from radegs_torch.models.appearance import init_appearance
     from radegs_torch.ops import blend
     from radegs_torch.ops import integrate as ig
+    from radegs_torch.ops import preprocess as pp
     from radegs_torch.renderer import render
     from radegs_torch.scripts import mesh_extract, mesh_extract_tetrahedra
     from radegs_torch.scripts import train as train_cli
@@ -2457,6 +2612,7 @@ def entry_points(workdir, tr_res):
     # ---- the entry points (launch counts: the phase 8 path) ----
     blend.reset_launches()
     ig.reset_launches()
+    pp.reset_launches()
     m1, m2, m3 = (os.path.join(workdir, m) for m in ("m1", "m2", "m3"))
     (ts, hist, tpsnr), walls["train"], text = run_cli(train_cli, [
         "-s", ds, "-m", m1, "--eval", "--iterations", str(CLI_ITERS), "--test_iterations", "1",
@@ -2539,7 +2695,8 @@ def entry_points(workdir, tr_res):
     (tv, tf), walls["tetra"], _ = run_cli(mesh_extract_tetrahedra, ["-m", m1],
                                           "mesh_extract_tetrahedra")
     d_tetra = float(np.median(surface_distance(tv, band)[0]))
-    launches = {**dict(blend.LAUNCHES), **dict(ig.LAUNCHES)}  # the phase 8 path ends here
+    # the phase 8 path ends here
+    launches = {**dict(blend.LAUNCHES), **dict(ig.LAUNCHES), **dict(pp.LAUNCHES)}
     log(f"phase 8 meshes: TSDF {walls['tsdf']:.3f} s, {len(verts)} vertices, {len(faces)} "
         f"faces, median distance {d_tsdf:.5f}; tetra {walls['tetra']:.3f} s, {len(tv)} "
         f"vertices, {len(tf)} faces, median distance {d_tetra:.5f} (to the sphere / plane "
@@ -2937,21 +3094,25 @@ def eval_viewer(ep):
 def evaluation(ep):
     """Phase 10: LPIPS on the card, the metrics CLI, the mesh evaluation CLIs
     and the network viewer, on phase 8's outputs (launch counts set to 0
-    before and read after)."""
+    before and read after, and returned)."""
     from radegs_torch.ops import blend
     from radegs_torch.ops import integrate as ig
+    from radegs_torch.ops import preprocess as pp
 
     t0 = time.perf_counter()
     blend.reset_launches()
     ig.reset_launches()
+    pp.reset_launches()
     eval_metrics(ep["m1"], ep["tpsnr"], eval_lpips(ep["workdir"], ep["m1"]))
     eval_meshes(ep)
     eval_viewer(ep)
-    launches = {**dict(blend.LAUNCHES), **dict(ig.LAUNCHES)}  # the phase 10 path ends here
+    # the phase 10 path ends here
+    launches = {**dict(blend.LAUNCHES), **dict(ig.LAUNCHES), **dict(pp.LAUNCHES)}
     g = default_g()
     log(f"phase 10 kernel launches: {launches}; {time.perf_counter() - t0:.1f} s in all")
     check(launches[f"blend_fwd[G={g}]"] > 0 and launches[f"blend_bwd[G={g}]"] > 0,
           f"a blend kernel never ran on the phase 10 path: {launches}")
+    return launches
 
 
 # ------------------------------------------------------------ phase 9 ----
@@ -3308,15 +3469,18 @@ def quality_cut(workdir):
     (launch counts set to 0 before and read after: the quality path)."""
     from radegs_torch.ops import blend
     from radegs_torch.ops import integrate as ig
+    from radegs_torch.ops import preprocess as pp
     from radegs_torch.scripts import quality_dense
 
     t0 = time.perf_counter()
     step_events = []
     blend.reset_launches()  # the quality path starts here
     ig.reset_launches()
+    pp.reset_launches()
     rep = quality_dense.main([*QUALITY_CUT, "--report", os.path.join(workdir, "quality.json")],
                              step_events=step_events)
-    launches = {**dict(blend.LAUNCHES), **dict(ig.LAUNCHES)}  # the quality path ends here
+    # the quality path ends here
+    launches = {**dict(blend.LAUNCHES), **dict(ig.LAUNCHES), **dict(pp.LAUNCHES)}
     wall = time.perf_counter() - t0
     ev, h = rep["eval"], rep["health"]
     stages, _ = stage_medians(step_events)
@@ -3726,6 +3890,7 @@ def rank_phase12(mesh, saved, pcfg):
     """Phase 12b on one rank: one step for the gates, then ``train(mesh=)``
     for PAR_ITERS iterations with the launch counts set to 0 just before."""
     from radegs_torch.ops import blend
+    from radegs_torch.ops import preprocess as pp
     from radegs_torch.train.loop import train
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3736,13 +3901,14 @@ def rank_phase12(mesh, saved, pcfg):
     gate = {k: v.cpu() for k, v in gate.items()} if mesh.rank == 0 else None
     stamps = []
     blend.reset_launches()  # the multi-rank training path starts here
+    pp.reset_launches()
     t0 = time.perf_counter()
     ts, hist = train(scene, g0, *parallel_configs(pcfg), seed=0, log_every=1, mesh=mesh,
                      device=mesh.device,
                      callbacks=[lambda it, ts, m: stamps.append(time.perf_counter())])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(blend.LAUNCHES)  # ... and ends here
+    launches = {**dict(blend.LAUNCHES), **dict(pp.LAUNCHES)}  # ... and ends here
     finite = all(bool(torch.isfinite(p).all()) for _, p in ts.gaussians.params.items())
     return dict(step=met, gate=gate, step_launches=step_launches, band=band,
                 backend=mesh.backend, hist=hist, launches=launches,
@@ -3960,14 +4126,16 @@ def bench_phase():
     and reported. Returns the bench's record, the breakdown's fields and
     the bench's kernel launches."""
     from radegs_torch.ops import blend
+    from radegs_torch.ops import preprocess as pp
     from radegs_torch.scripts import bench, bench_breakdown
 
     t0 = time.perf_counter()
     # ---- the bench path starts here ----
     blend.reset_launches()
+    pp.reset_launches()
     details = {}
     rec = bench.main(["--scene", "both"], details=details)
-    launches = dict(blend.LAUNCHES)  # the bench path ends here
+    launches = {**dict(blend.LAUNCHES), **dict(pp.LAUNCHES)}  # the bench path ends here
     t_bench = time.perf_counter() - t0
     log(f"phase 13 bench: {json.dumps(rec)}")
     for scene, d in details.items():
@@ -4046,6 +4214,13 @@ def main():
             integrate_only(tmp, sys.argv[2] if len(sys.argv) > 2 else None)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return
+    if sys.argv[1:] == ["--preprocess"]:
+        with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+            rows = preprocess_only(tmp)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        print(json.dumps({"kernels": rows}))
+        return
     if sys.argv[1:] == ["--tetra"]:
         with tempfile.TemporaryDirectory(dir=workdir) as tmp:
             tetra_only(tmp)
@@ -4087,7 +4262,7 @@ def main():
         tr = training(res)
         mesh = mesh_path(res, tmp)
         ep = entry_points(tmp, tr)
-        evaluation(ep)
+        ev = evaluation(ep)
         probes = bisect_probes(res)
         qual = quality(tmp)
         par12 = parallel_training(tmp, res)
@@ -4144,10 +4319,24 @@ def main():
             "bound_by": row["bound"][1], "library_ms": row["library_ms"],
             "floor_ms": row["floor_ms"],
         })
+    pre_rows = preprocess_rows(res["pre"], res["launches"])
+    # the preprocess kernel's launches on the paths of phases 6, 7, 8 and 10
+    for k in pre_rows:
+        k.update(train_launches=tr["pre_launches"][k["name"]],
+                 mesh_launches=mesh["launches"][k["name"]], cli_launches=ep["launches"][k["name"]],
+                 eval_launches=ev[k["name"]])
+    kernels += pre_rows
     for k in kernels:  # launches on phase 11a's quality path, 12b's ranks, 13's bench
         k["quality_launches"] = qual["launches"].get(k["name"], 0)
         k["parallel_launches"] = par12["launches"].get(k["name"], 0)
         k["bench_launches"] = bench13["launches"].get(k["name"], 0)
+    pre_names = [k for k in res["launches"] if k.startswith("preprocess_fwd")]
+    log("preprocess kernel launches by path (every SH degree): " + "; ".join(
+        f"{path} " + ", ".join(f"{k} {d[k]}" for k in pre_names if d[k])
+        for path, d in (("serve", res["launches"]), ("train", tr["pre_launches"]),
+                        ("mesh", mesh["launches"]), ("cli", ep["launches"]), ("eval", ev),
+                        ("quality", qual["launches"]), ("parallel", par12["launches"]),
+                        ("bench", bench13["launches"]))))
     log(f"backward kernel vs plain, max rel err per field over phases 2 and 5: "
         f"{max([p[2] for p in parity] + [v['rel'] for v in bwd.values()]):.3e}; vs the "
         f"reference renderer {res['ref_rel']:.3e}")

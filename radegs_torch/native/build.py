@@ -107,13 +107,15 @@ def load(name: str) -> ctypes.CDLL:
     return _loaded[name]
 
 
-def entry(name: str, n_ptr: int, n_int: int):
+def entry(name: str, n_ptr: int, n_int: int, n_float: int = 0):
     """The C entry ``radegs_<name>`` of kernel ``name``, built at first use,
-    with its ctypes signature: ``n_ptr`` pointers, ``n_int`` ints, then the
-    stream; it returns the launch's cudaError_t (0 on success)."""
+    with its ctypes signature: ``n_ptr`` pointers, ``n_int`` ints, ``n_float``
+    floats, then the stream; it returns the launch's cudaError_t (0 on
+    success)."""
     fn = getattr(load(name), f"radegs_{name}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 

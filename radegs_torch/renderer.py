@@ -4,8 +4,10 @@ gaussian_renderer/__init__.py:19-195): ``render`` applies the fused Mip
 render() dict; ``integrate`` (and its two halves ``integrate_prepare`` /
 ``integrate_points``) runs the same preprocess with the inverse ray-space
 covariance and the point-opacity integration of ``ops/integrate.py``;
-``mark_visible`` is the frustum test. Without an instance budget, ``render``
-and ``integrate_prepare`` size their work buffers from the view's demand."""
+``mark_visible`` is the frustum test. ``prepare`` runs the preprocess
+kernel for a view on a card that needs no gradient (``ops/preprocess.py``).
+Without an instance budget, ``render`` and ``integrate_prepare`` size their
+work buffers from the view's demand."""
 
 from __future__ import annotations
 
@@ -13,9 +15,10 @@ import warnings
 
 import torch
 
-from radegs_torch.core.projection import NEAR_PLANE, preprocess_gaussians
+from radegs_torch.core.projection import NEAR_PLANE
 from radegs_torch.models.gaussian_model import GaussianState
 from radegs_torch.ops import integrate as integrate_op
+from radegs_torch.ops import preprocess as preprocess_op
 from radegs_torch.ops.binning import MAX_PER_TILE_CAP, default_instance_budget, round_budget
 from radegs_torch.ops.rasterize import rasterize
 from radegs_torch.utils import trace
@@ -35,23 +38,16 @@ def prepare(state: GaussianState, camera, kernel_size: float = 0.0,
             scaling_modifier: float = 1.0, compute_invraycov: bool = False):
     """The preprocess of ``render``: fused filtered scales and opacity,
     inactive slots culled; ``compute_invraycov`` adds the inverse ray-space
-    covariance that integration needs."""
-    scales, opacity = state.get_fused_scaling_opacity()
-    opacity = torch.where(state.active[:, None], opacity, 0.0)
-    prep = preprocess_gaussians(
-        state.params.xyz,
-        scales,
-        state.get_rotation(),
-        opacity,
-        state.get_features(),
-        sh_degree=state.max_sh_degree,
-        camera=camera,
-        kernel_size=kernel_size,
-        scale_modifier=scaling_modifier,
-        active_sh_degree=state.active_sh_degree,
-        compute_invraycov=compute_invraycov,
-    )
-    return prep.replace(valid=prep.valid & state.active)
+    covariance that integration needs. On a card, a view that no gradient
+    can flow from (``ops/preprocess.needs_grad`` false) takes the kernel;
+    otherwise, and on the CPU, the plain version runs under autograd."""
+    if state.device.type == "cuda":
+        if not preprocess_op.needs_grad(state):
+            return preprocess_op.preprocess_forward(state, camera, kernel_size,
+                                                    scaling_modifier, compute_invraycov)
+        trace.count("preprocess", "plain")
+    return preprocess_op.preprocess_torch(state, camera, kernel_size, scaling_modifier,
+                                          compute_invraycov)
 
 
 def render(
