@@ -167,7 +167,10 @@ def bin_gaussians(
             # the first of binning's three host syncs on a card (and a fourth, the
             # longest run, on the plain path): the slot count sizes the buffers
             with trace.sync("binning.total"):
-                n_slots = min(int(total), instance_budget)
+                n_total = int(total)
+            n_slots = min(n_total, instance_budget)
+            trace.gauge("binning", "instances", n_total)  # the view's demand
+            trace.gauge("binning", "budget_cut", n_total - n_slots)
             slot = torch.arange(n_slots, dtype=torch.int64, device=dev)
             run = torch.searchsorted(run_end, slot, right=True)  # owning run per slot
             g = perm[run]
@@ -235,16 +238,26 @@ def default_instance_budget(num_points: int, multiplier: int = 8, minimum: int =
 
 
 BUDGET_SEG = 1 << 21  # segment granularity of the JAX package's budget buckets
-MAX_INSTANCE_BUDGET = 1 << 24
-MAX_PER_TILE_CAP = 1 << 14  # the largest max_per_tile the work-buffer policies grow to
+MAX_INSTANCE_BUDGET = 1 << 24  # the JAX package's ceiling: budget_cap's up to capacity 2^21
+# the largest max_per_tile the work-buffer policies grow to; the JAX package
+# stops at 2^14, which the deepest tiles of a 6M-splat scene exceed
+MAX_PER_TILE_CAP = 1 << 16
 
 
-def round_budget(need: int, minimum: int = 1 << 14) -> int:
+def budget_cap(capacity: int) -> int:
+    """The ceiling the budget policies grow an instance budget to, for a state
+    of ``capacity`` rows: ``MAX_INSTANCE_BUDGET`` (the JAX package's), or the
+    capacity's default budget where that is larger (2^26 at 2^23)."""
+    return max(MAX_INSTANCE_BUDGET, default_instance_budget(capacity))
+
+
+def round_budget(need: int, minimum: int = 1 << 14, cap: int | None = None) -> int:
     """Round a measured instance demand up to the JAX package's budget
     buckets: powers of two up to one 2M segment, 2M multiples above, capped
-    at 2^24."""
+    at ``cap`` (default ``MAX_INSTANCE_BUDGET``, 2^24)."""
+    cap = MAX_INSTANCE_BUDGET if cap is None else cap
     need = max(int(need), minimum)
     if need <= BUDGET_SEG:
         return 1 << (need - 1).bit_length()
     segs = -(-need // BUDGET_SEG)
-    return min(segs * BUDGET_SEG, MAX_INSTANCE_BUDGET)
+    return min(segs * BUDGET_SEG, cap)

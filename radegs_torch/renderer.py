@@ -7,7 +7,7 @@ covariance and the point-opacity integration of ``ops/integrate.py``;
 ``mark_visible`` is the frustum test. ``prepare`` runs the preprocess
 kernel for a view on a card that needs no gradient (``ops/preprocess.py``).
 Without an instance budget, ``render`` and ``integrate_prepare`` size their
-work buffers from the view's demand."""
+work buffers from the view's demand by one rule (``_grown``)."""
 
 from __future__ import annotations
 
@@ -19,7 +19,12 @@ from radegs_torch.core.projection import NEAR_PLANE
 from radegs_torch.models.gaussian_model import GaussianState
 from radegs_torch.ops import integrate as integrate_op
 from radegs_torch.ops import preprocess as preprocess_op
-from radegs_torch.ops.binning import MAX_PER_TILE_CAP, default_instance_budget, round_budget
+from radegs_torch.ops.binning import (
+    MAX_PER_TILE_CAP,
+    budget_cap,
+    default_instance_budget,
+    round_budget,
+)
 from radegs_torch.ops.rasterize import rasterize
 from radegs_torch.utils import trace
 from radegs_torch.utils.device import resolve_device
@@ -32,6 +37,30 @@ def _on(device, state: GaussianState, camera):
         raise ValueError(f"the Gaussian state lives on {state.device}, not on {dev}; "
                          "load it with the same device argument")
     return camera if camera.device.type == dev.type else camera.to(state.device)
+
+
+def _grown(b, budget: int, max_per_tile: int, capacity: int, site: str):
+    """The work buffers a binning ``b`` asks for: (instances dropped at the
+    budget, at ``max_per_tile``, the budget and ``max_per_tile`` that would
+    drop none). The budget grows to the view's demand in ``round_budget``'s
+    buckets, up to ``budget_cap(capacity)``; ``max_per_tile`` to the power
+    of two above the longest tile, up to ``MAX_PER_TILE_CAP``. The longest
+    tile is measured after the budget's cut: a view cut by both may ask for
+    more once binned again. The reads are host syncs at ``site``."""
+    with trace.sync(site, 2):
+        n_ovf, t_ovf = int(b.n_overflow), int(b.tile_overflow)
+    with trace.sync(site, (n_ovf > 0) + (t_ovf > 0)):
+        need_budget = (round_budget(int(b.n_instances), cap=budget_cap(capacity)) if n_ovf
+                       else budget)
+        need_tile = (min(max(max_per_tile, 1 << (int(b.max_tile_count) - 1).bit_length()),
+                         MAX_PER_TILE_CAP) if t_ovf else max_per_tile)
+    return n_ovf, t_ovf, need_budget, need_tile
+
+
+def _warn_dropped(what: str, n_ovf: int, t_ovf: int, budget: int, max_per_tile: int):
+    if n_ovf or t_ovf:
+        warnings.warn(f"{what} dropped {n_ovf} instances at the instance budget {budget} "
+                      f"and {t_ovf} at max_per_tile {max_per_tile} (their caps)")
 
 
 def prepare(state: GaussianState, camera, kernel_size: float = 0.0,
@@ -85,8 +114,9 @@ def render(
     its own autotune). None sizes them from the view's demand: the
     capacity's default budget first; while the binning drops instances, the
     view is binned and blended again with the budget and ``max_per_tile``
-    grown to what it measured (``max_per_tile`` up to ``MAX_PER_TILE_CAP``),
-    and a view that still drops instances at the caps raises a warning."""
+    grown to what it measured (the budget up to ``budget_cap`` of the
+    capacity, ``max_per_tile`` up to ``MAX_PER_TILE_CAP``), and a view that
+    still drops instances at the caps raises a warning."""
     with trace.unit("view", events, state.device):
         camera = _on(device, state, camera)
         bg = torch.as_tensor(bg, dtype=torch.float32, device=state.device)
@@ -105,22 +135,12 @@ def render(
                             xy_abs=xy_abs, events=events)
             if not grow:
                 return out
-            b = out["binning"]
-            with trace.sync("render.grow", 2):
-                n_ovf, t_ovf = int(b.n_overflow), int(b.tile_overflow)
-            # the per-tile demand is measured after the budget's cut: one more
-            # pass when both cut
-            with trace.sync("render.grow", (n_ovf > 0) + (t_ovf > 0)):
-                need_budget = round_budget(int(b.n_instances)) if n_ovf else budget
-                need_tile = (min(max(max_per_tile,
-                                     1 << (int(b.max_tile_count) - 1).bit_length()),
-                                 MAX_PER_TILE_CAP) if t_ovf else max_per_tile)
+            n_ovf, t_ovf, need_budget, need_tile = _grown(out["binning"], budget, max_per_tile,
+                                                          state.capacity, "render.grow")
             if (need_budget, need_tile) == (budget, max_per_tile):
                 break
             budget, max_per_tile = need_budget, need_tile
-        if n_ovf or t_ovf:
-            warnings.warn(f"render dropped {n_ovf} instances at the instance budget {budget} "
-                          f"and {t_ovf} at max_per_tile {max_per_tile} (their caps)")
+        _warn_dropped("render", n_ovf, t_ovf, budget, max_per_tile)
         return out
 
 
@@ -142,18 +162,27 @@ def integrate_prepare(state: GaussianState, camera, bg, kernel_size: float = 0.0
     binning, the phase-A image and the median plane. Returns (prep, cache)
     for ``integrate_points``, reusable across point sets (the tetra
     extractor's binary search evaluates 1 + 8 point sets per view).
-    Without an ``instance_budget`` the capacity's default is used, and grown
-    to the measured demand where it drops instances."""
+    ``instance_budget``: given, it and ``max_per_tile`` are used as they are;
+    None (or 0) sizes them as ``render`` does: the capacity's default budget first,
+    then, while the binning drops instances, the view binned and integrated
+    again with the budget and ``max_per_tile`` grown to what it measured, and
+    a warning for a view that still drops instances at the caps."""
     camera = _on(device, state, camera)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=state.device)
     prep = prepare(state, camera, kernel_size, compute_invraycov=True)
-    budget = instance_budget or default_instance_budget(state.capacity)
-    cache = integrate_op.integrate_view_cache(prep, camera, bg, max_per_tile=max_per_tile,
-                                              instance_budget=budget)
-    if instance_budget is None and int(cache["binning"].n_overflow):
-        cache = integrate_op.integrate_view_cache(
-            prep, camera, bg, max_per_tile=max_per_tile,
-            instance_budget=round_budget(int(cache["binning"].n_instances)))
+    grow = not instance_budget
+    budget = default_instance_budget(state.capacity) if grow else instance_budget
+    while True:
+        cache = integrate_op.integrate_view_cache(prep, camera, bg, max_per_tile=max_per_tile,
+                                                  instance_budget=budget)
+        if not grow:
+            return prep, cache
+        n_ovf, t_ovf, need_budget, need_tile = _grown(cache["binning"], budget, max_per_tile,
+                                                      state.capacity, "integrate.grow")
+        if (need_budget, need_tile) == (budget, max_per_tile):
+            break
+        budget, max_per_tile = need_budget, need_tile
+    _warn_dropped("integrate", n_ovf, t_ovf, budget, max_per_tile)
     return prep, cache
 
 

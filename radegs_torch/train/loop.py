@@ -30,8 +30,8 @@ from radegs_torch.models.appearance import (
 )
 from radegs_torch.ops.binning import (
     BUDGET_SEG,
-    MAX_INSTANCE_BUDGET,
     MAX_PER_TILE_CAP,
+    budget_cap,
     default_instance_budget,
     round_budget,
 )
@@ -87,9 +87,10 @@ def init_train_state(gaussians: gm.GaussianState, use_appearance: bool = False,
 
 
 def instance_budget(pcfg: PipelineConfig, capacity: int) -> int:
-    """The explicit budget, or the capacity-derived default (capped)."""
+    """The explicit budget, or the capacity-derived default (capped at
+    ``budget_cap(capacity)``)."""
     return pcfg.instance_budget or min(
-        default_instance_budget(capacity, pcfg.instance_multiplier), MAX_INSTANCE_BUDGET)
+        default_instance_budget(capacity, pcfg.instance_multiplier), budget_cap(capacity))
 
 
 def compute_loss(gaussians: gm.GaussianState, app_params, xy_offset, xy_abs, camera,
@@ -240,25 +241,26 @@ def autotune_pipeline(pcfg: PipelineConfig, n_ovf: float, t_ovf: float, window_p
                       per_shard_cap: int = 0) -> tuple[PipelineConfig, bool]:
     """One application of the work-buffer policy (loop.py:238-323): grow the
     instance budget on overflow (to 1.3x the window's peak demand, and at
-    least 1.5x), shrink it when the peak leaves it oversized by at least a
-    segment and 15%, and double ``max_per_tile`` on a tile overflow (up to
-    ``MAX_PER_TILE_CAP``). Multi-rank training (``per_shard_cap``, the
-    per-rank capacity, > 0) also tunes the gather cap ``vis_capacity``: up
+    least 1.5x, up to ``budget_cap(capacity)``), shrink it when the peak
+    leaves it oversized by at least a segment and 15%, and double
+    ``max_per_tile`` on a tile overflow (up to ``MAX_PER_TILE_CAP``).
+    Multi-rank training (``per_shard_cap``, the per-rank capacity, > 0) also tunes the gather cap ``vis_capacity``: up
     on ``vis_ovf`` (to 1.3x the worst-rank visible peak ``vis_peak``, and at
     least 2x), down to 1.5x the peak on a ``shrink_check``, in powers of two
     of at least 4096, never above ``per_shard_cap``. Returns (new_pcfg,
     changed)."""
     changed = False
+    cap = budget_cap(capacity)
     budget = instance_budget(pcfg, capacity)
-    target = round_budget(window_peak * 1.3)
-    if n_ovf > 0 and budget < MAX_INSTANCE_BUDGET:
-        new_budget = min(max(target, round_budget(budget * 3 // 2)), MAX_INSTANCE_BUDGET)
+    target = round_budget(window_peak * 1.3, cap=cap)
+    if n_ovf > 0 and budget < cap:
+        new_budget = min(max(target, round_budget(budget * 3 // 2, cap=cap)), cap)
         pcfg = replace_cfg(pcfg, instance_budget=new_budget)
         print(f"[radegs] instance overflow ({n_ovf:.0f}): growing budget "
               f"{budget} -> {new_budget}", flush=True)
         changed = True
     elif n_ovf > 0:
-        print(f"[radegs] instance overflow ({n_ovf:.0f}) at the {MAX_INSTANCE_BUDGET} "
+        print(f"[radegs] instance overflow ({n_ovf:.0f}) at the {cap} "
               "budget cap — rendering truncated", flush=True)
     if (not changed and shrink_check and target < budget
             and budget - target >= max(min(BUDGET_SEG, budget // 2), budget * 3 // 20)):

@@ -23,6 +23,11 @@ run ends (``summary``).
   builds by library), ``native`` (``build_s``: wall seconds of builds that
   ran nvcc), ``render`` (``pass``: binning-and-blend passes of ``render``'s
   grow loop). ``count`` adds to the registry and to the open unit.
+- **Gauges** are readings of a unit, not events: ``gauge`` sets the open
+  unit's ``<group>.<name>`` (the last reading stands), and nothing outside a
+  unit. The binning reads ``binning.instances`` (the view's instance demand
+  before the budget) and ``binning.budget_cut`` (the instances the budget
+  dropped) at its ``binning.total`` sync.
 - While a ``torch.profiler`` session records, every span and sync also opens
   ``record_function("radegs::<name>")``: the spans then sit in the
   profiler's Chrome trace as ``user_annotation`` events, on the kernels'
@@ -51,13 +56,14 @@ _profiling = torch.autograd._profiler_enabled
 
 class _Unit:
     __slots__ = ("id", "kind", "t0", "t1", "blocked_ns", "syncs", "sites", "counts",
-                 "device", "alloc0", "allocs", "retries")
+                 "gauges", "device", "alloc0", "allocs", "retries")
 
     def __init__(self, uid, kind, device):
         self.id, self.kind, self.device = uid, kind, device
         self.blocked_ns = self.syncs = self.allocs = self.retries = 0
         self.sites: dict = {}
         self.counts: dict = {}
+        self.gauges: dict = {}
         self.alloc0 = _alloc_stats(device)
 
 
@@ -261,6 +267,14 @@ def count(group: str, name: str, n=1):
         u.counts[key] = u.counts.get(key, 0) + n
 
 
+def gauge(group: str, name: str, value):
+    """Set the open unit's reading ``<group>.<name>`` to ``value``; a later
+    reading in the unit replaces it. Outside a unit it does nothing."""
+    u = _S.unit
+    if u is not None:
+        u.gauges[f"{group}.{name}"] = value
+
+
 def mark(events: list | None, stage: str):
     """Record a CUDA event after ``stage`` into ``events`` (when given)."""
     if events is not None:
@@ -287,12 +301,12 @@ def spans() -> list:
 def units() -> list:
     """The closed units: dicts of ``id``, ``kind``, ``host_ns``,
     ``blocked_ns``, ``syncs``, ``sites`` ({site: (count, ns)}), ``allocs``,
-    ``alloc_retries`` (None off a card) and ``counts``."""
+    ``alloc_retries`` (None off a card), ``counts`` and ``gauges``."""
     return [{"id": u.id, "kind": u.kind, "host_ns": u.t1 - u.t0, "blocked_ns": u.blocked_ns,
              "syncs": u.syncs, "sites": dict(u.sites),
              "allocs": u.allocs if u.alloc0 is not None else None,
              "alloc_retries": u.retries if u.alloc0 is not None else None,
-             "counts": dict(u.counts)} for u in _UNITS]
+             "counts": dict(u.counts), "gauges": dict(u.gauges)} for u in _UNITS]
 
 
 def _median(xs):
@@ -305,7 +319,8 @@ def summary() -> dict:
     ``host_ms`` (the root span), ``blocked_ms`` (inside ``sync``),
     ``dispatch_ms`` (host less blocked), ``syncs``, ``allocs`` and
     ``alloc_retries`` (None off a card), and ``counts`` (each counter's
-    median, 0 where a unit lacks it); ``sites[site]``: the syncs and blocked
+    median, 0 where a unit lacks it), ``gauges`` (each reading's median over
+    the units that read it); ``sites[site]``: the syncs and blocked
     ms over every unit; ``spans[name]``: ``n``, total ``ms`` and ``self_ms``;
     ``counters``: the registry; ``dropped``: spans and units past
     ``CAPACITY``. ``units`` is empty when nothing was traced."""
@@ -316,6 +331,7 @@ def summary() -> dict:
     sites: dict = {}
     for kind, us in by_kind.items():
         keys = sorted({k for u in us for k in u["counts"]})
+        gauges = sorted({k for u in us for k in u["gauges"]})
         on_card = [u for u in us if u["allocs"] is not None]
         out_units[kind] = {
             "n": len(us),
@@ -326,6 +342,8 @@ def summary() -> dict:
             "allocs": _median([u["allocs"] for u in on_card]),
             "alloc_retries": _median([u["alloc_retries"] for u in on_card]),
             "counts": {k: _median([u["counts"].get(k, 0) for u in us]) for k in keys},
+            "gauges": {k: _median([u["gauges"][k] for u in us if k in u["gauges"]])
+                       for k in gauges},
         }
         for u in us:
             for site, (n, ns) in u["sites"].items():
