@@ -31,7 +31,12 @@ the repository root on a machine with one CUDA card: ``python3 chip_smoke.py``).
    the rows valid on both sides; radius and flags on the active rows), as
    tests/test_torch_preprocess_kernel.py holds it; then alone in CUDA
    graphs beside its bytes bound (``preprocess_bytes``) and the plain
-   version's time. The backward against the exact reference renderer
+   version's time. Its backward kernel (``csrc/preprocess_bwd.cu``) with
+   seeded incoming gradients laid out as a train step's, against autograd
+   through the plain version on the card (``preprocess_backward_check``),
+   then alone in a CUDA graph beside its bytes bound
+   (``preprocess_bwd_bytes``) and autograd's backward, at the view's 2^21
+   rows and at the same rows four times over (2^23). The backward against the exact reference renderer
    (``rasterize`` with the kernels vs autograd through
    ``ops.reference.render_reference``, 256 Gaussians at 128x96: maps within
    ABS_TOL, gradients within 1e-4 x max |reference|). Then both blend
@@ -293,9 +298,10 @@ the configured G and phase 6's 100 iterations of the 100k scene and
 ``python3 chip_smoke.py --tetra`` only phase 7c: copied into a checkout of
 another commit and run there, each compares the two in one call.
 ``python3 chip_smoke.py --preprocess`` runs only the setup, phases 3-4 with
-phase 5's preprocess check, phase 7a (the kernel once per parity scene)
+phase 5's preprocess check, phase 7a (the kernel once per parity scene),
+one train step of the dense scene (one forward and one backward launch)
 and phase 7b (the kernel once per view); its kernels line holds the
-preprocess kernel's two rows alone. In the default run the two rows
+preprocess kernels' three rows alone. In the default run the two rows
 (``preprocess_fwd[sh=3,inv=0]`` and ``[sh=3,inv=1]``, the latter with the
 inverse ray-space covariance) give the kernel's launches on the serving
 path (``launches``) and on the paths of phases 6, 7, 8 and 10
@@ -1467,6 +1473,93 @@ def preprocess_check(state, cam, label, reps=20):
         f"{res['bound_1']:.4f} ms ({res['alone_0'] / res['bound_0']:.2f}x / "
         f"{res['alone_1'] / res['bound_1']:.2f}x); plain version {res['plain_ms']:.3f} ms "
         f"({int(state.active.sum())} active of {state.capacity} rows)")
+    res["bwd"] = preprocess_backward_check(state, cam, label, reps)
+    # the same rows four times over: 2^23 rows at capacity 2^21
+    big = state.replace(params=state.params.map(lambda x: torch.cat([x] * 4)),
+                        filter_3d=torch.cat([state.filter_3d] * 4),
+                        active=torch.cat([state.active] * 4))
+    res["bwd_4x"] = preprocess_backward_check(big, cam, f"{label} x4", 5, check_grads=False)
+    del big
+    torch.cuda.empty_cache()
+    return res
+
+
+# the least bytes of the preprocess backward kernel: an active row reads its
+# 59 parameter floats (SH degree 3), its 3D filter, its active flag and the
+# 24 floats of its incoming gradient, an inactive row its flag alone; every
+# row writes its 59 gradient floats
+def preprocess_bwd_bytes(state):
+    n, P = int(state.active.sum()), state.capacity
+    width = 3 + 3 * (state.max_sh_degree + 1) ** 2 + 3 + 4 + 1
+    return n * 4 * (width + 1 + 24) + P + P * 4 * width
+
+
+def train_cotangents(state, seed):
+    """Seeded incoming gradients of the preprocess, laid out as a train step
+    hands them over: seven fields as views of the blend backward's (P, 25)
+    rows, the opacity and the camera plane their own tensors, no depth."""
+    P, dev = state.capacity, state.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randn((P, 25), generator=g, device=dev)
+    return {"xy": rows[:, 0:2], "depth": None, "view_point": rows[:, 10:13],
+            "conic": rows[:, 3:6], "opacity": torch.randn((P,), generator=g, device=dev),
+            "rgb": rows[:, 7:10], "camera_plane": torch.randn((P, 3, 2), generator=g, device=dev),
+            "ray_plane": rows[:, 19:21], "normal": rows[:, 21:24], "ts": rows[:, 24]}
+
+
+def preprocess_backward_check(state, cam, label, reps=20, check_grads=True):
+    """The backward kernel at one view, with seeded incoming gradients laid
+    out as a train step's: (``check_grads``) against autograd through the
+    plain version on the card, row by row (the largest component's gap over
+    the row's largest gradient; a row past 1e-3 is one whose gradient
+    cancels, as tests/test_torch_preprocess_grad.py holds it to float64 and
+    finds; at most 1e-4 of the active rows may be), non-finite rows the same,
+    an inactive row zeros; then alone in a CUDA graph beside its bytes bound
+    (``preprocess_bwd_bytes``), and autograd's backward through the plain
+    version (CUDA events)."""
+    from radegs_torch.ops import preprocess as pp
+
+    res = {}
+    cots = train_cotangents(state, 20)
+    params = state.params.map(lambda x: x.detach().clone().requires_grad_(True))
+    prep = pp.preprocess_torch(state.replace(params=params), cam, 0.1)
+    used = [(getattr(prep, f), c) for f, c in cots.items() if c is not None]
+    outs, grads = [o for o, _ in used], [c for _, c in used]
+    res["plain_ms"] = time_ms(lambda: torch.autograd.backward(outs, grads, retain_graph=True), 3)
+    if check_grads:
+        for _, x in params.items():
+            x.grad.zero_()
+        torch.autograd.backward(outs, grads, retain_graph=True)
+        got = pp.preprocess_backward(state, cam, 0.1, 1.0, cots)
+        torch.cuda.synchronize()
+        act, n = state.active, int(state.active.sum())
+        worst, share = {}, {}
+        for name, g in got.items():
+            if g.numel() == 0:
+                continue
+            check(bool((g[~act] == 0).all()), f"{label}: preprocess_bwd gave an inactive row of "
+                  f"{name} a gradient")
+            a, k = getattr(params, name).grad[act].reshape(n, -1), g[act].reshape(n, -1)
+            fin = torch.isfinite(a).all(1)
+            check(torch.equal(fin, torch.isfinite(k).all(1)),
+                  f"{label}: preprocess_bwd's non-finite rows of {name} differ from autograd's")
+            rel = ((k - a).abs().amax(1) / a.abs().amax(1).clamp_min(1e-30))[fin]
+            worst[name], share[name] = float(rel.max()), float((rel > 1e-3).float().mean())
+        log(f"{label} preprocess_bwd vs autograd through the plain version, largest row gap "
+            "(share of rows past 1e-3): " + ", ".join(f"{k} {worst[k]:.2e} ({share[k]:.1e})"
+                                                     for k in worst))
+        check(max(share.values()) <= 1e-4,
+              f"{label}: preprocess_bwd is not autograd's gradient: {share}")
+        res["worst_rel"] = max(worst.values())
+        del got
+    del prep, outs, grads, params
+    torch.cuda.empty_cache()
+    res["alone"] = graph_ms(lambda: pp.preprocess_backward(state, cam, 0.1, 1.0, cots), reps)
+    res["bound"] = preprocess_bwd_bytes(state) / PEAK_BYTES * 1e3
+    log(f"{label} preprocess_bwd alone (CUDA graph of {reps}): {res['alone']:.4f} ms; bytes "
+        f"bound {res['bound']:.4f} ms ({res['alone'] / res['bound']:.2f}x, "
+        f"{preprocess_bwd_bytes(state)} B); autograd's backward through the plain version "
+        f"{res['plain_ms']:.3f} ms ({int(state.active.sum())} active of {state.capacity} rows)")
     return res
 
 
@@ -1480,7 +1573,42 @@ def preprocess_rows(pre, launches):
              "launches": launches[f"preprocess_fwd[sh=3,inv={inv}]"], "same_bits": True,
              "alone_ms": pre[f"alone_{inv}"], "plain_ms": pre["plain_ms"] if inv == 0 else None,
              "bound_ms": pre[f"bound_{inv}"], "bound_by": "bytes", "library_ms": None}
-            for inv in (0, 1)]
+            for inv in (0, 1)] + [
+        {"name": "preprocess_bwd[sh=3]", "route": "cuda",
+         "source": "radegs_torch/csrc/preprocess_bwd.cu",
+         "replaces": "none (the JAX preprocess's gradient is XLA's autograd)",
+         "launches": launches["preprocess_bwd[sh=3]"], "max_rel_gap": pre["bwd"]["worst_rel"],
+         "alone_ms": pre["bwd"]["alone"], "plain_ms": pre["bwd"]["plain_ms"],
+         "bound_ms": pre["bwd"]["bound"], "alone_ms_2p23": pre["bwd_4x"]["alone"],
+         "plain_ms_2p23": pre["bwd_4x"]["plain_ms"], "bound_ms_2p23": pre["bwd_4x"]["bound"],
+         "bound_by": "bytes", "library_ms": None}]
+
+
+def train_step_launches(state, cam, budget):
+    """The preprocess kernels' launches in one ``make_train_step`` of
+    ``state`` at ``cam`` (a seeded random ground truth): one forward and one
+    backward, and the plain preprocess never."""
+    from radegs_torch.ops import preprocess as pp
+    from radegs_torch.train import loop
+    from radegs_torch.train.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from radegs_torch.utils import trace
+
+    dev = state.device
+    gt = torch.rand((3, cam.height, cam.width), generator=torch.Generator(device=dev)
+                    .manual_seed(3), device=dev)
+    step = loop.make_train_step(ModelConfig(kernel_size=0.1), OptimizationConfig(),
+                                PipelineConfig(max_per_tile=8192, instance_budget=budget), 1.0)
+    pp.reset_launches()
+    plain = trace.counters("preprocess").get("plain", 0)
+    step(loop.init_train_state(state), cam, gt, torch.zeros(3, device=dev), 0, cam.width,
+         cam.height)
+    torch.cuda.synchronize()
+    launches = dict(pp.LAUNCHES)
+    log(f"one train step's preprocess launches: { {k: v for k, v in launches.items() if v} }")
+    check(launches["preprocess_fwd[sh=3,inv=0]"] == 1 and launches["preprocess_bwd[sh=3]"] == 1
+          and sum(launches.values()) == 2 and trace.counters("preprocess").get("plain", 0) == plain,
+          f"a train step's preprocess is not one forward and one backward launch: {launches}")
+    return launches
 
 
 def preprocess_only(workdir):
@@ -1500,6 +1628,8 @@ def preprocess_only(workdir):
     pp.reset_launches()
     views = mesh_views()
     state = load_scene(res["dpath"], res["dcap"], views)
+    train_launches = train_step_launches(state, views[0][0], res["dbudget"])
+    pp.reset_launches()
     _, verts, _ = mesh_tsdf(state, views, workdir, "7b TSDF of the dense 1.2M scene")
     mesh_geometry(verts, "7b TSDF")
     n_pre = pp.LAUNCHES["preprocess_fwd[sh=3,inv=0]"]
@@ -1508,7 +1638,8 @@ def preprocess_only(workdir):
           "views")
     rows = preprocess_rows(res["pre"], res["launches"])
     for row in rows:
-        row.update(tsdf_launches=pp.LAUNCHES[row["name"]])
+        row.update(tsdf_launches=pp.LAUNCHES[row["name"]],
+                   train_step_launches=train_launches[row["name"]])
     log(f"7a preprocess_fwd[sh=0,inv=1] launches {n_7a}, integrate max abs err "
         f"{max(p[0] for p in parity):.3e}")
     return rows
@@ -4330,7 +4461,7 @@ def main():
         k["quality_launches"] = qual["launches"].get(k["name"], 0)
         k["parallel_launches"] = par12["launches"].get(k["name"], 0)
         k["bench_launches"] = bench13["launches"].get(k["name"], 0)
-    pre_names = [k for k in res["launches"] if k.startswith("preprocess_fwd")]
+    pre_names = [k for k in res["launches"] if k.startswith("preprocess_")]
     log("preprocess kernel launches by path (every SH degree): " + "; ".join(
         f"{path} " + ", ".join(f"{k} {d[k]}" for k in pre_names if d[k])
         for path, d in (("serve", res["launches"]), ("train", tr["pre_launches"]),

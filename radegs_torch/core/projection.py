@@ -101,11 +101,13 @@ def preprocess_gaussians(
     rotations (P,4) unit quaternions (w,x,y,z); opacities (P,1) or (P,),
     already mip-compensated; shs (P,M,3) with M >= (sh_degree+1)^2, or None
     with ``colors_precomp`` (P,3); ``cov3d_precomp`` (P,3,3) overrides
-    scales/rotations."""
-    f32 = torch.float32
-    means3d = means3d.to(f32)
+    scales/rotations. Float64 centres (and a float64 camera) are evaluated
+    in float64, the tests' measure of truth for the gradient; anything else
+    in float32."""
+    dt = torch.float64 if means3d.dtype == torch.float64 else torch.float32
+    means3d = means3d.to(dt)
     P = means3d.shape[0]
-    opac = opacities.reshape(P).to(f32)
+    opac = opacities.reshape(P).to(dt)
 
     W_img, H_img = camera.width, camera.height
     viewmat = camera.world_view
@@ -127,14 +129,14 @@ def preprocess_gaussians(
 
     # --- world covariance and its inverse ---
     if cov3d_precomp is not None:
-        cov3d = cov3d_precomp.to(f32)
+        cov3d = cov3d_precomp.to(dt)
         eigval, eigvec, _ = sym3x3_eigendecomposition(cov3d)
         min_eig = eigval[:, 0]
         min_vec = eigvec[:, :, 0]
         vrk_inv_full = sym3x3_inverse(cov3d)
     else:
-        R = quat_to_rotmat_raw(rotations.to(f32))
-        s2 = torch.square(scales.to(f32) * scale_modifier)
+        R = quat_to_rotmat_raw(rotations.to(dt))
+        s2 = torch.square(scales.to(dt) * scale_modifier)
         Rt = R.transpose(1, 2)
         cov3d = _bmm3(R * s2[:, None, :], Rt)
         min_eig, arg = torch.min(s2, dim=-1)  # first minimum on ties
@@ -231,9 +233,9 @@ def preprocess_gaussians(
 
     # --- colour ---
     if colors_precomp is not None:
-        rgb = colors_precomp.to(f32)
+        rgb = colors_precomp.to(dt)
     else:
-        rgb, _ = eval_sh_color(sh_degree, shs.to(f32), means3d, camera.camera_center,
+        rgb, _ = eval_sh_color(sh_degree, shs.to(dt), means3d, camera.camera_center,
                                active_degree=active_sh_degree)
 
     ts = torch.linalg.vector_norm(p_view, dim=-1)  # forward.cu:381

@@ -1,9 +1,12 @@
 """The preprocess of a view, from the state's raw tensors to the rasterizer's
 per-Gaussian inputs: the CUDA kernel ``csrc/preprocess_fwd.cu`` behind
-``preprocess_forward``, for views that need no gradient, and its plain
-PyTorch version ``preprocess_torch`` (the state's getters — fused filtered
-scales and opacity, normalised rotation, the SH features — and
-``core/projection.preprocess_gaussians``), which autograd differentiates.
+``preprocess_forward``, its gradient ``csrc/preprocess_bwd.cu`` behind
+``preprocess_backward``, the two joined as a ``torch.autograd.Function`` in
+``preprocess_train`` for views on a card that a gradient flows from, and
+their plain PyTorch version ``preprocess_torch`` (the state's getters —
+fused filtered scales and opacity, normalised rotation, the SH features —
+and ``core/projection.preprocess_gaussians``), which autograd
+differentiates on the CPU.
 
 The kernel writes one (P, 24) float32 table in the forward blend's column
 order (``ops/blend.py`` ``pack_features``, ``N_FEAT``) beside ``radius``,
@@ -12,13 +15,23 @@ order (``ops/blend.py`` ``pack_features``, ``N_FEAT``) beside ``radius``,
 Its table differs from the plain version's fields where nothing reads them:
 the opacity column is 0 on rows that are not valid (the blend and the
 integrate kernels zero those themselves), and an inactive row is zeros.
+
+The backward kernel takes the incoming gradient of each field where autograd
+hands it over (pointers and strides; an absent one reads as zero) and writes
+the gradients of the six parameter tensors in their own layouts: the
+gradient autograd takes through the plain version on every active row (the
+opacity's as if the column were ``opacity * coef`` there too), zeros on an
+inactive one.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from radegs_torch.core.projection import PreprocessOut, preprocess_gaussians
+from radegs_torch.models.gaussian_model import GaussianParams
 from radegs_torch.native import build
 from radegs_torch.ops.blend import N_FEAT
 from radegs_torch.utils import trace
@@ -32,12 +45,18 @@ COLUMNS = {"xy": slice(0, 2), "conic": slice(2, 5), "opacity": 5, "rgb": slice(6
 DEPTH = 14  # view_point's z
 MAX_SH_DEGREE = 3
 
-# kernel launches per SH degree (the layout of f_rest) and with / without
-# the inverse ray-space covariance, counted where the wrapper launches (the
-# tracer's group "launches.preprocess")
+# the differentiable fields, in the backward kernel's order of incoming
+# gradients, with the number of dimensions of each
+GRAD_FIELDS = (("xy", 2), ("depth", 1), ("view_point", 2), ("conic", 2), ("opacity", 1),
+               ("rgb", 2), ("camera_plane", 3), ("ray_plane", 2), ("normal", 2), ("ts", 1))
+
+# kernel launches per SH degree (the layout of f_rest) and, forward, with /
+# without the inverse ray-space covariance, counted where the wrappers launch
+# (the tracer's group "launches.preprocess")
 LAUNCHES = trace.counters("launches.preprocess",
                           tuple(f"preprocess_fwd[sh={d},inv={i}]"
-                                for d in range(MAX_SH_DEGREE + 1) for i in (0, 1)))
+                                for d in range(MAX_SH_DEGREE + 1) for i in (0, 1))
+                          + tuple(f"preprocess_bwd[sh={d}]" for d in range(MAX_SH_DEGREE + 1)))
 
 
 def reset_launches():
@@ -148,3 +167,124 @@ def preprocess_forward(state, camera, kernel_size: float = 0.0,
         raise RuntimeError(f"preprocess_fwd kernel launch failed with CUDA error {rc}")
     trace.count("launches.preprocess", f"preprocess_fwd[sh={D},inv={int(compute_invraycov)}]")
     return from_table(table, radius, valid, well, invraycov)
+
+
+def _bwd_entry():
+    return build.entry("preprocess_bwd", 20, 8, 2)
+
+
+def _cotangents(grads: dict, P: int, dev):
+    """The incoming gradients as the C entry's two host arrays: their
+    pointers (null for a field with none) and three strides each (in
+    floats)."""
+    ptrs = (ctypes.c_void_p * len(GRAD_FIELDS))()
+    strides = (ctypes.c_longlong * (3 * len(GRAD_FIELDS)))()
+    for k, (name, ndim) in enumerate(GRAD_FIELDS):
+        g = grads.get(name)
+        if g is None:
+            continue
+        if g.device != dev or g.dtype != torch.float32 or g.dim() != ndim or g.shape[0] != P:
+            raise ValueError(f"the gradient of {name} must be a {ndim}-d float32 tensor of {P} "
+                             f"rows on {dev}; got {g.dtype} {tuple(g.shape)} on {g.device}")
+        ptrs[k] = g.data_ptr()
+        strides[3 * k:3 * k + ndim] = g.stride()
+    return ptrs, strides
+
+
+def launch_backward(entry, state, camera, kernel_size: float, scaling_modifier: float,
+                    grads: dict, stream=None) -> GaussianParams:
+    """One call of the backward's C entry ``entry`` (the kernel's, or a host
+    build of the same source): the gradients of the state's six parameter
+    tensors from ``grads`` ({field: incoming gradient or None}) at the view
+    of ``camera``. The checks of ``preprocess_forward`` on the inputs; the
+    caller checks the device."""
+    p = state.params
+    dev = p.xyz.device
+    D = state.max_sh_degree
+    if not 0 <= D <= MAX_SH_DEGREE:
+        raise ValueError(f"the preprocess kernel takes SH degrees 0-{MAX_SH_DEGREE}, not {D}")
+    P = state.capacity
+    f32 = torch.float32
+    rows = [("xyz", p.xyz, f32, (P, 3)), ("f_dc", p.f_dc, f32, (P, 1, 3)),
+            ("f_rest", p.f_rest, f32, (P, (D + 1) ** 2 - 1, 3)),
+            ("scaling", p.scaling, f32, (P, 3)), ("rotation", p.rotation, f32, (P, 4)),
+            ("opacity", p.opacity, f32, (P, 1)), ("filter_3d", state.filter_3d, f32, (P, 1)),
+            ("active", state.active, torch.bool, (P,)), ("camera.fovx", camera.fovx, f32, ()),
+            ("camera.fovy", camera.fovy, f32, ())]
+    for name, x, dtype, shape in rows:
+        build.check_tensor(name, x, dtype, shape, dev)
+    for name in ("f_rest", "rotation"):  # read as 16-byte words
+        if getattr(p, name).data_ptr() % 16:
+            raise ValueError(f"preprocess kernel: {name} must be 16-byte aligned")
+    for name, x, shape in (("camera.R", camera.R, (3, 3)), ("camera.T", camera.T, (3,))):
+        if x.device != dev or x.dtype != f32 or tuple(x.shape) != shape:
+            raise ValueError(f"kernel input {name} must be a {f32} tensor of shape {shape} on "
+                             f"{dev}; got {x.dtype} {tuple(x.shape)} on {x.device}")
+    ptrs, strides = _cotangents(grads, P, dev)
+    out = p.map(torch.empty_like)
+    rc = entry(*(x.data_ptr() for _, x, _, _ in rows[:8]), camera.R.data_ptr(),
+               camera.T.data_ptr(), camera.fovx.data_ptr(), camera.fovy.data_ptr(),
+               ctypes.addressof(ptrs), ctypes.addressof(strides),
+               *(t.data_ptr() for _, t in out.items()), *camera.R.stride(), camera.T.stride(0),
+               P, camera.width, camera.height, D, state.active_sh_degree, float(kernel_size),
+               float(scaling_modifier), stream)
+    if rc != 0:
+        raise RuntimeError(f"preprocess_bwd kernel launch failed with CUDA error {rc}")
+    return out
+
+
+def preprocess_backward(state, camera, kernel_size: float, scaling_modifier: float,
+                        grads: dict) -> GaussianParams:
+    """The gradients of the state's six parameter tensors, from one launch of
+    the backward kernel over the state's rows (CUDA tensors only; it raises
+    otherwise, and on a failed launch): ``grads`` maps each field of
+    ``GRAD_FIELDS`` to its incoming gradient, any strides, or None."""
+    dev = state.params.xyz.device
+    if dev.type != "cuda":
+        raise ValueError(f"the preprocess kernel runs on cuda tensors, not {dev}")
+    with on_device(dev):
+        out = launch_backward(_bwd_entry(), state, camera, kernel_size, scaling_modifier, grads,
+                              torch.cuda.current_stream().cuda_stream)
+    trace.count("launches.preprocess", f"preprocess_bwd[sh={state.max_sh_degree}]")
+    return out
+
+
+class PreprocessFunction(torch.autograd.Function):
+    """The kernel pair between the state's six parameter tensors and the
+    fields of ``PreprocessOut``: forward ``preprocess_forward`` (its
+    differentiable fields are views of the kernel's table), backward
+    ``preprocess_backward``, which recomputes what it needs from the
+    parameters; autograd hands it each field's gradient as it is, None for
+    a field with none."""
+
+    @staticmethod
+    def forward(ctx, state, camera, kernel_size, scaling_modifier, *params):
+        out = preprocess_forward(state, camera, kernel_size, scaling_modifier)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*params)
+        ctx.view = (state, camera, kernel_size, scaling_modifier)
+        ctx.mark_non_differentiable(out.radius, out.valid, out.well_conditioned)
+        return tuple(getattr(out, f) for f, _ in GRAD_FIELDS) + (
+            out.radius, out.valid, out.well_conditioned)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        state, camera, kernel_size, scaling_modifier = ctx.view
+        state = state.replace(params=GaussianParams(*ctx.saved_tensors))
+        out = preprocess_backward(state, camera, kernel_size, scaling_modifier,
+                                  {f: g for (f, _), g in zip(GRAD_FIELDS, grads)})
+        return (None, None, None, None, *(t for _, t in out.items()))
+
+
+def preprocess_train(state, camera, kernel_size: float = 0.0, scaling_modifier: float = 1.0,
+                     compute_invraycov: bool = False) -> PreprocessOut:
+    """``preprocess_torch``'s result, and its gradient to the state's
+    parameters, from the kernel pair (``PreprocessFunction``; CUDA tensors
+    only). The backward has no inverse ray-space covariance: asked for one,
+    it raises."""
+    if compute_invraycov:
+        raise ValueError("the preprocess backward kernel has no inverse ray-space covariance")
+    outs = PreprocessFunction.apply(state, camera, float(kernel_size), float(scaling_modifier),
+                                    *(t for _, t in state.params.items()))
+    f = dict(zip([n for n, _ in GRAD_FIELDS] + ["radius", "valid", "well_conditioned"], outs))
+    return PreprocessOut(**f)

@@ -5,7 +5,8 @@ render() dict; ``integrate`` (and its two halves ``integrate_prepare`` /
 ``integrate_points``) runs the same preprocess with the inverse ray-space
 covariance and the point-opacity integration of ``ops/integrate.py``;
 ``mark_visible`` is the frustum test. ``prepare`` runs the preprocess
-kernel for a view on a card that needs no gradient (``ops/preprocess.py``).
+kernel for a view on a card, and its backward kernel where a gradient flows
+(``ops/preprocess.py``).
 Without an instance budget, ``render`` and ``integrate_prepare`` size their
 work buffers from the view's demand by one rule (``_grown``)."""
 
@@ -68,13 +69,16 @@ def prepare(state: GaussianState, camera, kernel_size: float = 0.0,
     """The preprocess of ``render``: fused filtered scales and opacity,
     inactive slots culled; ``compute_invraycov`` adds the inverse ray-space
     covariance that integration needs. On a card, a view that no gradient
-    can flow from (``ops/preprocess.needs_grad`` false) takes the kernel;
-    otherwise, and on the CPU, the plain version runs under autograd."""
+    can flow from (``ops/preprocess.needs_grad`` false) takes the kernel, and
+    one that a gradient flows from the kernel pair (``preprocess_train``:
+    the kernel forward, its backward kernel); on the CPU the plain version
+    runs under autograd."""
     if state.device.type == "cuda":
-        if not preprocess_op.needs_grad(state):
-            return preprocess_op.preprocess_forward(state, camera, kernel_size,
-                                                    scaling_modifier, compute_invraycov)
-        trace.count("preprocess", "plain")
+        if preprocess_op.needs_grad(state):
+            return preprocess_op.preprocess_train(state, camera, kernel_size, scaling_modifier,
+                                                  compute_invraycov)
+        return preprocess_op.preprocess_forward(state, camera, kernel_size, scaling_modifier,
+                                                compute_invraycov)
     return preprocess_op.preprocess_torch(state, camera, kernel_size, scaling_modifier,
                                           compute_invraycov)
 

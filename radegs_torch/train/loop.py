@@ -1,6 +1,7 @@
 """The training loop (port of ``radegs_tpu/train/loop.py``; reference
 train.py:61-214): one ``train_step`` (render -> loss -> backward through the
-blend kernel and autograd through preprocess -> Adam -> densification
+blend kernel and, on a card, the preprocess backward kernel, or autograd
+through the plain preprocess on the CPU -> Adam -> densification
 statistics), and densify / prune / opacity reset on the reference's
 schedule. PyTorch runs eagerly, so plain Python takes the place of the JAX
 package's ``jax.jit``; nothing is wrapped in ``torch.compile``.

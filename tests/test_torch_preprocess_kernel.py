@@ -4,10 +4,10 @@
 ``python -m pytest --noconftest tests/test_torch_preprocess_kernel.py``;
 the ``cuda`` tests skip without a card.
 
-On the CPU: ``prepare`` runs the plain version for CPU tensors, and on a
-card (a state that reports a CUDA device, its tensors on the CPU) for
-parameters a gradient can flow from, counting ``preprocess.plain``; it
-hands every other card view to the kernel's wrapper. The table's views
+On the CPU: ``prepare`` runs the plain version for CPU tensors; on a card
+(a state that reports a CUDA device, its tensors on the CPU) it hands a
+view that parameters a gradient can flow from to the kernel pair
+(``preprocess_train``) and every other view to the kernel's wrapper. The table's views
 (``from_table``) read back through ``pack_features`` equal a seeded table
 bit for bit, and have the plain version's shapes and dtypes.
 
@@ -25,9 +25,11 @@ PyTorch does (``csrc/preprocess_fwd.cu``), and a last-bit difference in a
 conic or an opacity moves a pixel's 1/255 alpha gate, a colour step of up
 to 1/255 (the benchmark's ``rgb_max_gap`` limit is 1e-3). Then ``render``
 under ``no_grad`` against ``render`` with parameters that require grad
-(every map the same), the syncs of a served view (3, binning's) under
+through the plain version (every map the same), the syncs of a served view (3, binning's) under
 ``torch.cuda.set_sync_debug_mode``, and ``launches.preprocess``: one
-launch a served view, none for a train step.
+launch a served view, one forward and one backward launch a train step,
+and no plain preprocess (tests/test_torch_preprocess_grad.py holds the
+backward's gradients).
 """
 
 import warnings
@@ -119,7 +121,7 @@ def on_card(state):
 def test_counters_live_in_the_registry():
     assert trace.counters("launches.preprocess") is pp.LAUNCHES
     assert set(pp.LAUNCHES) == {f"preprocess_fwd[sh={d},inv={i}]" for d in range(4)
-                                for i in (0, 1)}
+                                for i in (0, 1)} | {f"preprocess_bwd[sh={d}]" for d in range(4)}
 
 
 def test_prepare_runs_the_plain_version_on_the_cpu():
@@ -138,20 +140,18 @@ def test_prepare_takes_the_kernel_where_no_gradient_can_flow(grad, monkeypatch):
     state, cam = scene("cpu"), camera("cpu")
     if grad != "none":
         state = state.replace(params=state.params.map(lambda x: x.requires_grad_(True)))
-    calls = []
-    monkeypatch.setattr(pp, "preprocess_forward", lambda *a: calls.append(a) or "kernel")
-    n_plain = trace.counters("preprocess").get("plain", 0)
+    calls = {"kernel": [], "pair": []}
+    monkeypatch.setattr(pp, "preprocess_forward", lambda *a: calls["kernel"].append(a) or "kernel")
+    monkeypatch.setattr(pp, "preprocess_train", lambda *a: calls["pair"].append(a) or "pair")
     if grad == "no_grad":
         with torch.no_grad():
             got = renderer.prepare(on_card(state), cam, 0.1, 0.7, True)
     else:
         got = renderer.prepare(on_card(state), cam, 0.1, 0.7, True)
-    if grad == "params":  # the plain version, under autograd
-        assert not calls and got.xy.requires_grad
-        assert trace.counters("preprocess")["plain"] == n_plain + 1
-    else:
-        assert got == "kernel" and len(calls) == 1 and calls[0][2:] == (0.1, 0.7, True)
-        assert trace.counters("preprocess").get("plain", 0) == n_plain
+    # a gradient flows from the parameters: the kernel pair; else the kernel
+    want = "pair" if grad == "params" else "kernel"
+    assert got == want and len(calls[want]) == 1 and calls[want][0][2:] == (0.1, 0.7, True)
+    assert sum(map(len, calls.values())) == 1
 
 
 def test_needs_grad():
@@ -249,7 +249,7 @@ def test_kernel_matches_plain(degree, active, kernel_size, modifier, inv, capaci
 
 
 @pytest.mark.cuda
-def test_render_without_gradient_matches_render_with_it():
+def test_render_without_gradient_matches_render_with_it(monkeypatch):
     dev = card()
     state, cam = scene(dev), camera(dev)
     bg = torch.zeros(3, device=dev)
@@ -259,6 +259,9 @@ def test_render_without_gradient_matches_render_with_it():
         fused = renderer.render(state, cam, bg, **kw)
     assert pp.LAUNCHES["preprocess_fwd[sh=3,inv=0]"] == before["preprocess_fwd[sh=3,inv=0]"] + 1
     grad_state = state.replace(params=state.params.map(lambda x: x.clone().requires_grad_(True)))
+    # the view with gradient through the plain version (on a card it takes
+    # the kernel pair, whose forward is the kernel above)
+    monkeypatch.setattr(pp, "preprocess_train", pp.preprocess_torch)
     plain = renderer.render(grad_state, cam, bg, **kw)
     assert dict(pp.LAUNCHES) == {k: v + (k == "preprocess_fwd[sh=3,inv=0]")
                                  for k, v in before.items()}
@@ -310,5 +313,7 @@ def test_a_train_step_takes_the_plain_version():
          events=[])
     torch.cuda.synchronize()
     (u,) = trace.units()
-    assert not any(k.startswith("launches.preprocess") for k in u["counts"])
-    assert u["counts"]["preprocess.plain"] >= 1
+    launches = {k: v for k, v in u["counts"].items() if k.startswith("launches.preprocess")}
+    assert launches == {"launches.preprocess.preprocess_fwd[sh=3,inv=0]": 1,
+                        "launches.preprocess.preprocess_bwd[sh=3]": 1}
+    assert "preprocess.plain" not in u["counts"]

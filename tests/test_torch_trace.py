@@ -9,7 +9,8 @@ named span tree with one unit id, parents and self times, and their
 user annotations and the aten op count does not move; ``idle_by_span``
 on a hand-made trace; the launch and build counters live in the tracer's
 registry. On a card: the syncs a step and a view count equal the
-synchronising operations ``torch.cuda.set_sync_debug_mode`` reports.
+synchronising operations ``torch.cuda.set_sync_debug_mode`` reports, and a
+step crosses ``CARD_STEP_SITES``.
 """
 
 import json
@@ -44,6 +45,10 @@ BINNING_SITES = {"binning.total": 1, "binning.keep": 2, "binning.max_tile_count"
 VIEW_SITES = {"camera.world_view": 2, **BINNING_SITES}
 STEP_SITES = {**VIEW_SITES, "ssim.taps": 1, "fuse_3d_filter.prod_backward": 1,
               "stats.ndc_scale": 1}
+# a step on the card: the preprocess kernels read the camera and differentiate
+# the fused filter without the host (no camera.world_view, no
+# fuse_3d_filter.prod_backward), the kernel binning takes no tile count
+CARD_STEP_SITES = {"binning.total": 1, "binning.keep": 2, "ssim.taps": 1, "stats.ndc_scale": 1}
 
 
 class FakeEvent:
@@ -268,4 +273,5 @@ def test_syncs_equal_the_sync_debug_warnings_on_the_card():
     n_grow = warned(lambda: view(ts.gaussians, cam, dev, events=[], budget=None))
     step_u, view_u, grow_u = trace.units()
     assert (step_u["syncs"], view_u["syncs"], grow_u["syncs"]) == (n_step, n_view, n_grow)
+    assert sites(step_u) == CARD_STEP_SITES
     assert n_step > 0 and step_u["allocs"] is not None and step_u["alloc_retries"] == 0
