@@ -658,7 +658,7 @@ def graph_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def kernel_bound_ms(binning, inputs, work, least=True):
+def kernel_bound_ms(binning, table, work, least=True):
     """Least time for the blend's work on these inputs: every input read
     once, every output written once, and the FP32 operations at peak. With
     ``least``, each term at its multiplicity in ``work`` (the gate's dx and
@@ -666,7 +666,7 @@ def kernel_bound_ms(binning, inputs, work, least=True):
     walked pair, the alpha where it reaches 1/255, the blend's dx halves per
     (instance, column) with a blended pixel); else the full-gate count, every
     term per walked or blended pair and the alpha on every walked pair."""
-    P = inputs[0].shape[0]
+    P = table.shape[0]
     T = binning.tile_count.shape[0]
     n_bytes = (P * 24 * 4 + binning.gauss_id.numel() * 4 + T * 8
                + T * 17 * 256 * 4 + T * 256 * 4)
@@ -682,18 +682,18 @@ def kernel_bound_ms(binning, inputs, work, least=True):
     return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations"), n_bytes, ops
 
 
-def backward_bound_ms(binning, inputs, work):
+def backward_bound_ms(binning, table, work):
     """Least time for the backward's work on these inputs: features,
     gauss_id, tile ranges, per-tile cotangents + totals (28 rows) and
     med_pos read once; the 25-float instance rows written and read back once,
     with the segment sum's order (N) and ranges (P + 1); the (P, 25) result
     written once. Operations: the walked and blended pairs and the segment
     sum at FP32 peak."""
-    P = inputs[0].shape[0]
+    P = table.shape[0]
     T = binning.tile_count.shape[0]
     N = binning.gauss_id.numel()
     n_bytes = (P * 24 * 4 + N * 4 + T * 8 + T * 29 * 256 * 4 + 2 * N * 25 * 4 + N * 4
-               + (P + 1) * 4 + P * 25 * 4)
+               + (P + 1) * 4 + P * 26 * 4)
     ops = (OPS_BWD_WALKED * int(work["n_eval"]) + OPS_BWD_BLENDED * int(work["n_incl"])
            + OPS_BWD_SEGMENT * N)
     t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
@@ -709,28 +709,39 @@ def random_cotangents(fwd, seed):
             for k in blend.DIFF_KEYS}
 
 
+def grad_fields(grad):
+    """A blend gradient buffer as per-field views: the table's fields, then
+    xy_abs (P, 2)."""
+    from radegs_torch.core.projection import COLUMNS, column
+    from radegs_torch.ops import blend
+
+    return {**{f: column(grad, f) for f in COLUMNS}, "xy_abs": grad[:, blend.XY_ABS:]}
+
+
 def compare_grads(kernel, plain):
-    """Per field: max abs error and that error over max |plain|."""
+    """Per field of two gradient buffers: max abs error and that error over
+    max |plain|."""
     out = {}
-    for k, v in plain.items():
+    kernel = grad_fields(kernel)
+    for k, v in grad_fields(plain).items():
         err = (kernel[k] - v).abs().max().item()
         out[k] = (err, err / max(v.abs().max().item(), 1e-30))
     return out
 
 
-def check_backward(binning, inputs, fwd, cot, W, H, label):
+def check_backward(binning, table, fwd, cot, W, H, label):
     """blend_bwd at G=1 and G=2 bit-identical, two runs bit-identical, each
     field within BWD_REL_TOL of the plain version. Returns the max abs and
     max relative error."""
     from radegs_torch.ops import blend
 
-    b1 = blend.blend_backward(binning, inputs, fwd, cot, W, H, tiles_per_block=1)
-    b2 = blend.blend_backward(binning, inputs, fwd, cot, W, H, tiles_per_block=2)
-    b2r = blend.blend_backward(binning, inputs, fwd, cot, W, H, tiles_per_block=2)
+    b1 = blend.blend_backward(binning, table, fwd, cot, W, H, tiles_per_block=1)
+    b2 = blend.blend_backward(binning, table, fwd, cot, W, H, tiles_per_block=2)
+    b2r = blend.blend_backward(binning, table, fwd, cot, W, H, tiles_per_block=2)
     torch.cuda.synchronize()
-    check(bit_identical(b1, b2), f"{label}: blend_bwd G=1 and G=2 are not bit-identical")
-    check(bit_identical(b2, b2r), f"{label}: blend_bwd differs between two runs")
-    plain = blend.blend_backward_torch(binning.tile_gauss, inputs, fwd, cot, W, H)
+    check(torch.equal(b1, b2), f"{label}: blend_bwd G=1 and G=2 are not bit-identical")
+    check(torch.equal(b2, b2r), f"{label}: blend_bwd differs between two runs")
+    plain = blend.blend_backward_torch(binning.tile_gauss, table, fwd, cot, W, H)
     errs = compare_grads(b2, plain)
     log(f"{label} backward: G1==G2 and run==rerun bitwise; per field abs err / rel to max "
         "|plain|: " + ", ".join(f"{k} {a:.3e} / {r:.3e}" for k, (a, r) in errs.items()))
@@ -761,6 +772,8 @@ def bwd_libraries(variants, probes, other=None):
     if other:
         text = open(os.path.join(other, "blend_bwd.cu")).read()
         check("const void* rank," in text, f"{other}/blend_bwd.cu: its C entry takes no rank")
+        check("grad_column(" in text, f"{other}/blend_bwd.cu: its segment sum writes the "
+              "(P, 25) rows of pallas_blend.py's order, not the table's (P, 26) columns")
         copies["other"] = text, other
     libs = {}
     for name, (lib, out) in build.build_copies(
@@ -781,16 +794,17 @@ class BwdCall:
     (num_gauss 0) or the segment sum alone (num_tiles 0) through any
     library's ``radegs_blend_bwd``."""
 
-    def __init__(self, binning, inputs, fwd, cot, W, H):
+    def __init__(self, binning, table, fwd, cot, W, H):
         from radegs_torch.ops import blend
 
-        self.feat, self.T, self.tiles_x = blend._kernel_inputs(binning, inputs, W, H, 2)
+        self.T, self.tiles_x = blend._kernel_inputs(binning, table, W, H, 2)
+        self.feat = table
         self.P, self.N = self.feat.shape[0], binning.gauss_id.numel()
         self.aux = blend.pack_aux(fwd, cot)
         self.med_pos = fwd["med_pos"].to(torch.int32).contiguous()
         self.rank, self.seg = blend.instance_segments(binning.gauss_id, self.P)
         self.rows = torch.empty((self.N, 32), device=DEVICE)
-        self.grad = torch.empty((self.P, blend.N_GRAD), device=DEVICE)
+        self.grad = torch.empty((self.P, blend.GRAD_COLS), device=DEVICE)
         self.binning, self.W, self.H = binning, W, H
 
     def __call__(self, fn, g=2, walk=True, segment=True):
@@ -805,7 +819,7 @@ class BwdCall:
         return self.grad
 
 
-def backward_shape(label, binning, inputs, fwd, cot, W, H, work, libs, reps):
+def backward_shape(label, binning, table, fwd, cot, W, H, work, libs, reps):
     """One backward shape: ``check_backward`` (G=1 == G=2, run == rerun,
     each field within BWD_REL_TOL of the plain version), every checked
     library of ``libs`` (``bwd_libraries``) held to the plain version too;
@@ -820,13 +834,13 @@ def backward_shape(label, binning, inputs, fwd, cot, W, H, work, libs, reps):
     from radegs_torch.native import build
     from radegs_torch.ops import blend
 
-    bwd_abs, bwd_rel, plain = check_backward(binning, inputs, fwd, cot, W, H, label)
-    call = BwdCall(binning, inputs, fwd, cot, W, H)
+    bwd_abs, bwd_rel, plain = check_backward(binning, table, fwd, cot, W, H, label)
+    call = BwdCall(binning, table, fwd, cot, W, H)
     tree = build.entry("blend_bwd", 10, 7)
     lib_rel = {}
     for name, (fn, checked) in libs.items():
         if checked:
-            got = blend.grads_from_rows(call(fn).clone())
+            got = call(fn).clone()
             lib_rel[name] = max(r for _, r in compare_grads(got, plain).values())
             check(lib_rel[name] <= BWD_REL_TOL, f"{label}: backward {name} vs plain rel err "
                   f"{lib_rel[name]}")
@@ -845,16 +859,16 @@ def backward_shape(label, binning, inputs, fwd, cot, W, H, work, libs, reps):
     sort_ms = graph_ms(lambda: blend.instance_segments(binning.gauss_id, call.P), reps)
     pack_ms = graph_ms(lambda: blend.pack_aux(fwd, cot), reps)
     pair = {g: graph_ms(lambda g=g: call(tree, g), reps) for g in (1, 2)}
-    calls = {g: lambda g=g: blend.blend_backward(binning, inputs, fwd, cot, W, H,
+    calls = {g: lambda g=g: blend.blend_backward(binning, table, fwd, cot, W, H,
                                                  tiles_per_block=g) for g in (1, 2)}
     if "other" in sums:
-        calls["other"] = other_wrapper(sums["other"], binning, inputs, fwd, cot, W, H)
+        calls["other"] = other_wrapper(sums["other"], binning, table, fwd, cot, W, H)
     wrapper = {}
     for g in list(calls) + list(calls)[::-1]:
         wrapper.setdefault(g, []).append(time_ms(calls[g], reps))
-    plain_ms = time_ms(lambda: blend.blend_backward_torch(binning.tile_gauss, inputs, fwd, cot,
+    plain_ms = time_ms(lambda: blend.blend_backward_torch(binning.tile_gauss, table, fwd, cot,
                                                           W, H), 1)
-    bound, bound_by, n_bytes, ops = backward_bound_ms(binning, inputs, work)
+    bound, bound_by, n_bytes, ops = backward_bound_ms(binning, table, work)
     log(f"{label} backward pieces ({binning.gauss_id.numel()} instances, {int(work['n_eval'])} "
         f"pairs walked, {int(work['n_incl'])} blended; device ms alone in CUDA graphs of "
         f"{reps}): walk kernel " + ", ".join(f"{k} {v}" for k, v in walk.items())
@@ -871,7 +885,7 @@ def backward_shape(label, binning, inputs, fwd, cot, W, H, work, libs, reps):
                 n_inst=binning.gauss_id.numel())
 
 
-def other_wrapper(fn, binning, inputs, fwd, cot, W, H):
+def other_wrapper(fn, binning, table, fwd, cot, W, H):
     """A call of another checkout's whole backward wrapper at G=2 around its
     pair ``fn``: this checkout's ``blend.blend_backward`` with the entry
     swapped."""
@@ -881,7 +895,7 @@ def other_wrapper(fn, binning, inputs, fwd, cot, W, H):
         entry = blend._entry
         blend._entry = lambda name: fn
         try:
-            return blend.blend_backward(binning, inputs, fwd, cot, W, H, tiles_per_block=2)
+            return blend.blend_backward(binning, table, fwd, cot, W, H, tiles_per_block=2)
         finally:
             blend._entry = entry
 
@@ -928,10 +942,11 @@ class FwdCall:
     ``blend.blend_forward`` builds them, to launch any library's
     ``radegs_blend_fwd`` (``fwd_entry``) alone."""
 
-    def __init__(self, binning, inputs, W, H):
+    def __init__(self, binning, table, W, H):
         from radegs_torch.ops import blend
 
-        self.feat, self.T, self.tiles_x = blend._kernel_inputs(binning, inputs, W, H, 2)
+        self.T, self.tiles_x = blend._kernel_inputs(binning, table, W, H, 2)
+        self.feat = table
         self.out = torch.empty((self.T, blend.N_OUT, 256), device=DEVICE)
         self.med = torch.empty((self.T, 256), dtype=torch.int32, device=DEVICE)
         self.binning = binning
@@ -945,7 +960,7 @@ class FwdCall:
         return self.out, self.med
 
 
-def forward_shape(label, binning, inputs, work, plain_ms, libs, reps):
+def forward_shape(label, binning, table, work, plain_ms, libs, reps):
     """One forward shape: the kernel through ``blend.blend_forward`` at G=1
     and G=2 against the plain output ``work`` (abs ABS_TOL, med_pos flips <=
     MED_POS_TOL), G=1 == G=2 and run == rerun bitwise, and every library of
@@ -959,16 +974,16 @@ def forward_shape(label, binning, inputs, work, plain_ms, libs, reps):
     from radegs_torch.ops import blend
 
     W, H = WIDTH, HEIGHT
-    k1 = blend.blend_forward(binning, inputs, W, H, tiles_per_block=1)
-    k2 = blend.blend_forward(binning, inputs, W, H, tiles_per_block=2)
-    k2r = blend.blend_forward(binning, inputs, W, H, tiles_per_block=2)
+    k1 = blend.blend_forward(binning, table, W, H, tiles_per_block=1)
+    k2 = blend.blend_forward(binning, table, W, H, tiles_per_block=2)
+    k2r = blend.blend_forward(binning, table, W, H, tiles_per_block=2)
     torch.cuda.synchronize()
     check(bit_identical(k1, k2), f"{label}: blend_fwd G=1 and G=2 are not bit-identical")
     check(bit_identical(k2, k2r), f"{label}: blend_fwd differs between two runs")
     err, flips, med_err = compare(k2, work)
     check(err <= ABS_TOL and med_err <= ABS_TOL, f"{label}: kernel vs plain {err}, {med_err}")
     check(flips <= MED_POS_TOL, f"{label}: med_pos flips {flips}")
-    call = FwdCall(binning, inputs, W, H)
+    call = FwdCall(binning, table, W, H)
     tree = fwd_entry(build.load("blend_fwd"))
     ref = [x.clone() for x in call(tree, 2)]
     check(all(same_bits(a, b) for a, b in zip(ref, (blend.pack_raw(k2), k2["med_pos"]))),
@@ -984,9 +999,9 @@ def forward_shape(label, binning, inputs, work, plain_ms, libs, reps):
     wrapper = {}
     for g in (1, 2, 2, 1):
         wrapper.setdefault(g, []).append(round(time_ms(
-            lambda g=g: blend.blend_forward(binning, inputs, W, H, tiles_per_block=g), reps), 4))
-    bound, bound_by, n_bytes, ops = kernel_bound_ms(binning, inputs, work)
-    full, _, _, ops_full = kernel_bound_ms(binning, inputs, work, least=False)
+            lambda g=g: blend.blend_forward(binning, table, W, H, tiles_per_block=g), reps), 4))
+    bound, bound_by, n_bytes, ops = kernel_bound_ms(binning, table, work)
+    full, _, _, ops_full = kernel_bound_ms(binning, table, work, least=False)
     med = {k: float(np.median(v)) for k, v in alone.items()}
     log(f"{label} forward ({binning.gauss_id.numel()} instances, max per tile "
         f"{int(binning.max_tile_count)}; pairs walked {int(work['n_eval'])}, alpha >= 1/255 "
@@ -1009,10 +1024,10 @@ def forward_shape(label, binning, inputs, work, plain_ms, libs, reps):
 
 
 def view0_binning(state, cam, max_per_tile, capacity):
-    """The preprocess, blend inputs and binning (with ``tile_gauss``) of one
+    """The preprocess's table and the binning (with ``tile_gauss``) of one
     view, the instance budget set from the view's measured demand."""
     from radegs_torch.ops.binning import default_instance_budget, round_budget
-    from radegs_torch.ops.rasterize import bin_prep, blend_inputs
+    from radegs_torch.ops.rasterize import bin_prep
     from radegs_torch.renderer import prepare
 
     prep = prepare(state, cam, 0.1)
@@ -1023,7 +1038,7 @@ def view0_binning(state, cam, max_per_tile, capacity):
     check(int(binning.n_overflow) == 0 and int(binning.tile_overflow) == 0,
           f"view 0 binning dropped work: {int(binning.n_overflow)}, "
           f"{int(binning.tile_overflow)}")
-    return blend_inputs(prep), binning
+    return prep.table, binning
 
 
 def view0_shapes(path, cap, dpath, dcap, cams):
@@ -1031,7 +1046,7 @@ def view0_shapes(path, cap, dpath, dcap, cams):
     (``max_per_tile`` 512, as served), (b) the dense view 0 (8192, early
     termination), (c) the training shape: ``create_from_points`` of the 100k
     scene's centres (opacity 0.1, 3-NN scales; ``training_scene``), view 0,
-    no tile cut. Yields (shape, label, binning, inputs, work, plain_ms, reps):
+    no tile cut. Yields (shape, label, binning, table, work, plain_ms, reps):
     ``work`` the plain forward's output with its pair counts, ``plain_ms``
     the ms of one more plain call without the counts (CUDA events, as
     ``time_ms``)."""
@@ -1054,14 +1069,14 @@ def view0_shapes(path, cap, dpath, dcap, cams):
             max_per_tile, capacity, label = MAX_PER_TILE_CAP, state.capacity, "(c) training view 0"
             reps = 10
         with torch.no_grad():
-            inputs, binning = view0_binning(state, cams[0], max_per_tile, capacity)
+            table, binning = view0_binning(state, cams[0], max_per_tile, capacity)
             del state
-            work = blend.blend_forward_torch(binning.tile_gauss, inputs, WIDTH, HEIGHT,
+            work = blend.blend_forward_torch(binning.tile_gauss, table, WIDTH, HEIGHT,
                                              count_work=True)
-            plain_ms = time_ms(lambda: blend.blend_forward_torch(binning.tile_gauss, inputs,
+            plain_ms = time_ms(lambda: blend.blend_forward_torch(binning.tile_gauss, table,
                                                                  WIDTH, HEIGHT), 1, warmup=False)
-        yield shape, label, binning, inputs, work, plain_ms, reps
-        del inputs, binning, work
+        yield shape, label, binning, table, work, plain_ms, reps
+        del table, binning, work
         torch.cuda.empty_cache()
 
 
@@ -1073,14 +1088,14 @@ def backward_shapes(path, cap, dpath, dcap, cams, libs):
     from radegs_torch.ops import blend
 
     out = {}
-    for shape, label, binning, inputs, work, plain_ms, reps in view0_shapes(
+    for shape, label, binning, table, work, plain_ms, reps in view0_shapes(
             path, cap, dpath, dcap, cams):
         with torch.no_grad():
-            fwd_res = forward_shape(f"phase 5 {label}", binning, inputs, work, plain_ms, {},
+            fwd_res = forward_shape(f"phase 5 {label}", binning, table, work, plain_ms, {},
                                     reps)
-            fwd = blend.blend_forward(binning, inputs, WIDTH, HEIGHT)
+            fwd = blend.blend_forward(binning, table, WIDTH, HEIGHT)
             cot = random_cotangents(fwd, {"a": 12, "b": 14, "c": 15}[shape])
-            out[shape] = backward_shape(f"phase 5 {label}", binning, inputs, fwd, cot, WIDTH,
+            out[shape] = backward_shape(f"phase 5 {label}", binning, table, fwd, cot, WIDTH,
                                         HEIGHT, work, libs, reps)
         out[shape].update(max_tile=int(binning.max_tile_count), fwd=fwd_res)
         del fwd, cot
@@ -1096,7 +1111,7 @@ def reference_check():
     their plain versions). Maps within ABS_TOL, gradients within
     REF_REL_TOL x max |reference| per field. Returns the max relative error."""
     from radegs_torch.core.camera import Camera
-    from radegs_torch.core.projection import preprocess_gaussians
+    from radegs_torch.core.projection import PreprocessOut, preprocess_gaussians
     from radegs_torch.ops.rasterize import rasterize
     from radegs_torch.ops.reference import render_reference
 
@@ -1122,15 +1137,16 @@ def reference_check():
              "median_coord": "median_coord", "normal": "normal"}
     bg = t([0.3, 0.2, 0.1])
     leaves = {f: getattr(prep, f).detach().clone().requires_grad_(True) for f in fields}
-    out = rasterize(prep.replace(**leaves), cam, bg, max_per_tile=1024,
+    rest = prep.valid, prep.radius, prep.well_conditioned
+    out = rasterize(PreprocessOut.from_fields(*rest, **leaves), cam, bg, max_per_tile=1024,
                     instance_budget=1 << 16, tiles_per_block=2)
     check(int(out["binning"].n_overflow) == 0 and int(out["binning"].tile_overflow) == 0,
           "reference scene binning dropped work")
     weights = {k: t(rng.normal(size=tuple(out[k].shape))) for k in names}
     sum((weights[k] * out[k]).sum() for k in names).backward()
     ref_leaves = {f: getattr(prep, f).detach().clone().requires_grad_(True) for f in fields}
-    ref = render_reference(prep.replace(**ref_leaves), REF_W, REF_H, cam.focal_x, cam.focal_y,
-                           bg)
+    ref = render_reference(PreprocessOut.from_fields(*rest, **ref_leaves), REF_W, REF_H,
+                           cam.focal_x, cam.focal_y, bg)
     map_err = max((out[k] - ref[r]).abs().max().item() for k, r in names.items())
     sum((weights[k] * ref[r]).sum() for k, r in names.items()).backward()
     rel = {f: ((leaves[f].grad - ref_leaves[f].grad).abs().max()
@@ -1231,7 +1247,7 @@ def parity_scene(W=256, H=256, target=(0, 0, 0), backward=True):
     from radegs_torch.core.camera import Camera
     from radegs_torch.core.projection import preprocess_gaussians
     from radegs_torch.ops import blend
-    from radegs_torch.ops.rasterize import bin_prep, blend_inputs
+    from radegs_torch.ops.rasterize import bin_prep
 
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(3)
@@ -1247,13 +1263,13 @@ def parity_scene(W=256, H=256, target=(0, 0, 0), backward=True):
         t(rng.uniform(0, 1, (P, 1, 3))), sh_degree=0, camera=cam, kernel_size=0.1)
     binning = bin_prep(prep, W, H, instance_budget=1 << 15, max_per_tile=512,
                        need_tile_gauss=True)
-    inputs = blend_inputs(prep)
-    plain = blend.blend_forward_torch(binning.tile_gauss, inputs, W, H)
-    k1 = blend.blend_forward(binning, inputs, W, H, tiles_per_block=1)
-    k2 = blend.blend_forward(binning, inputs, W, H, tiles_per_block=2)
+    table = prep.table
+    plain = blend.blend_forward_torch(binning.tile_gauss, table, W, H)
+    k1 = blend.blend_forward(binning, table, W, H, tiles_per_block=1)
+    k2 = blend.blend_forward(binning, table, W, H, tiles_per_block=2)
     torch.cuda.synchronize()
     check(bit_identical(k1, k2), "blend_fwd G=1 and G=2 are not bit-identical")
-    check(bit_identical(k2, blend.blend_forward(binning, inputs, W, H, tiles_per_block=2)),
+    check(bit_identical(k2, blend.blend_forward(binning, table, W, H, tiles_per_block=2)),
           "blend_fwd differs between two runs")
     err, flips, med_err = compare(k1, plain)
     log(f"phase 2 parity scene: P={P} {W}x{H} n_instances={int(binning.n_instances)} "
@@ -1265,7 +1281,7 @@ def parity_scene(W=256, H=256, target=(0, 0, 0), backward=True):
     check(flips <= MED_POS_TOL, f"med_pos flips {flips}")
     if not backward:
         return max(err, med_err), None, None
-    bwd_abs, bwd_rel, _ = check_backward(binning, inputs, k1, random_cotangents(k1, 11), W, H,
+    bwd_abs, bwd_rel, _ = check_backward(binning, table, k1, random_cotangents(k1, 11), W, H,
                                          f"phase 2 {W}x{H}")
     return max(err, med_err), bwd_abs, bwd_rel
 
@@ -1495,16 +1511,14 @@ def preprocess_bwd_bytes(state):
 
 
 def train_cotangents(state, seed):
-    """Seeded incoming gradients of the preprocess, laid out as a train step
-    hands them over: seven fields as views of the blend backward's (P, 25)
-    rows, the opacity and the camera plane their own tensors, no depth."""
+    """A seeded incoming gradient of the preprocess's table, laid out as a
+    train step hands it over: the first 24 columns of the blend backward's
+    (P, 26) buffer."""
+    from radegs_torch.ops import blend
+
     P, dev = state.capacity, state.device
     g = torch.Generator(device=dev).manual_seed(seed)
-    rows = torch.randn((P, 25), generator=g, device=dev)
-    return {"xy": rows[:, 0:2], "depth": None, "view_point": rows[:, 10:13],
-            "conic": rows[:, 3:6], "opacity": torch.randn((P,), generator=g, device=dev),
-            "rgb": rows[:, 7:10], "camera_plane": torch.randn((P, 3, 2), generator=g, device=dev),
-            "ray_plane": rows[:, 19:21], "normal": rows[:, 21:24], "ts": rows[:, 24]}
+    return torch.randn((P, blend.GRAD_COLS), generator=g, device=dev)[:, :blend.XY_ABS]
 
 
 def preprocess_backward_check(state, cam, label, reps=20, check_grads=True):
@@ -1523,8 +1537,7 @@ def preprocess_backward_check(state, cam, label, reps=20, check_grads=True):
     cots = train_cotangents(state, 20)
     params = state.params.map(lambda x: x.detach().clone().requires_grad_(True))
     prep = pp.preprocess_torch(state.replace(params=params), cam, 0.1)
-    used = [(getattr(prep, f), c) for f, c in cots.items() if c is not None]
-    outs, grads = [o for o, _ in used], [c for _, c in used]
+    outs, grads = prep.table, cots
     res["plain_ms"] = time_ms(lambda: torch.autograd.backward(outs, grads, retain_graph=True), 3)
     if check_grads:
         for _, x in params.items():
@@ -3426,7 +3439,7 @@ def bisect_probes(res, other=None):
     the tolerance, each timed alone in the same turns."""
     from radegs_torch.ops import bisect
     from radegs_torch.ops import blend
-    from radegs_torch.ops.rasterize import bin_prep, blend_inputs
+    from radegs_torch.ops.rasterize import bin_prep
     from radegs_torch.renderer import prepare
     from radegs_torch.scripts import kernel_bisect as kb
 
@@ -3514,13 +3527,11 @@ def bisect_probes(res, other=None):
         prep = prepare(state, mesh_views()[0][0], 0.1)
         del state
         binning = bin_prep(prep, WIDTH, HEIGHT, res["dbudget"], 8192, need_tile_gauss=False)
-        inputs = blend_inputs(prep)
-        table = torch.cat([x.reshape(x.shape[0], -1).float() for x in inputs], 1)
+        table = prep.table
         n_inst = binning.gauss_id.numel()
         feat = torch.zeros((25, n_inst), device=dev)
         feat[:table.shape[1]] = table[binning.gauss_id.long()].T
         feat = bisect.pad_columns(feat)
-        del table
         start, count = binning.tile_start.contiguous(), binning.tile_count.contiguous()
         out = bisect.window(start, count, feat)
         t0 = time.perf_counter()
@@ -3531,7 +3542,7 @@ def bisect_probes(res, other=None):
         check(same_bits(out, bisect.window(start, count, feat)),
               "dense window differs between two runs")
         dms = [graph_ms(lambda: bisect.window(start, count, feat), 20) for _ in range(2)]
-        fwd_ms = time_ms(lambda: blend.blend_forward(binning, inputs, WIDTH, HEIGHT), 5)
+        fwd_ms = time_ms(lambda: blend.blend_forward(binning, table, WIDTH, HEIGHT), 5)
         dbound = bisect_bound_ms("window", start, count, feat)
         # the bytes the kernel asks for (every window of every step, a window
         # at a boundary between two tiles twice) and two yardsticks: the same
@@ -3949,21 +3960,21 @@ def band_kernels(prep, kw, label):
     max |plain|), with seeded cotangents. Returns (forward max abs error,
     backward worst relative error)."""
     from radegs_torch.ops import blend
-    from radegs_torch.ops.rasterize import bin_prep, blend_inputs
+    from radegs_torch.ops.rasterize import bin_prep
 
     W, H, g = kw["render_width"], kw["render_height"], kw["tiles_per_block"]
     ndc = (WIDTH, HEIGHT)
     with torch.no_grad():
         binning = bin_prep(prep, W, H, kw["instance_budget"], kw["max_per_tile"],
                            need_tile_gauss=True)
-        inputs = tuple(x.detach() for x in blend_inputs(prep))
-        fwd = blend.blend_forward(binning, inputs, W, H, tiles_per_block=g)
-        err, flips, med_err = compare(fwd, blend.blend_forward_torch(binning.tile_gauss, inputs,
+        table = prep.table.detach()
+        fwd = blend.blend_forward(binning, table, W, H, tiles_per_block=g)
+        err, flips, med_err = compare(fwd, blend.blend_forward_torch(binning.tile_gauss, table,
                                                                      W, H))
         cot = random_cotangents(fwd, 12)
-        grads = blend.blend_backward(binning, inputs, fwd, cot, W, H, tiles_per_block=g,
+        grads = blend.blend_backward(binning, table, fwd, cot, W, H, tiles_per_block=g,
                                      ndc_size=ndc)
-        errs = compare_grads(grads, blend.blend_backward_torch(binning.tile_gauss, inputs, fwd,
+        errs = compare_grads(grads, blend.blend_backward_torch(binning.tile_gauss, table, fwd,
                                                                cot, W, H, ndc_size=ndc))
     torch.cuda.synchronize()
     worst = max(r for _, r in errs.values())
@@ -4239,10 +4250,10 @@ def forward_only(workdir, other):
     cams = orbit_cameras(N_VIEWS, torch.device(DEVICE))
     path, dpath = os.path.join(workdir, "scene100k.ply"), os.path.join(workdir, "dense.ply")
     cap, dcap = scene_ply(path, "100k"), scene_ply(dpath, "dense")
-    for _, label, binning, inputs, work, plain_ms, reps in view0_shapes(
+    for _, label, binning, table, work, plain_ms, reps in view0_shapes(
             path, cap, dpath, dcap, cams):
         with torch.no_grad():
-            forward_shape(f"--fwd {label}", binning, inputs, work, plain_ms, libs, reps)
+            forward_shape(f"--fwd {label}", binning, table, work, plain_ms, libs, reps)
     log(f"forward vs plain, max abs err over phase 2: {max(p[0] for p in parity):.3e}")
 
 

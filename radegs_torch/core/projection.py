@@ -16,6 +16,14 @@ filter, and RaDe-GS's ray-space plane / normal derivation.
 
 Layouts are (P, k) and (P, 3, 3): the JAX package's component form exists
 only to dodge TPU lane padding.
+
+The per-Gaussian table is the one interface from the preprocess to the
+blend: a (P, N_FEAT) float row per Gaussian in the column order of
+``COLUMNS`` (the blend kernels' feature row, the FEAT_LAYOUT of
+``radegs_tpu/ops/pallas_blend.py``), opacity 0 on a row that is not valid.
+This module owns that layout; ``csrc/preprocess_fwd.cu`` writes it, the
+blend kernels and ``csrc/preprocess_bwd.cu`` read it (and the blend's
+gradient comes back in it) at the same column positions.
 """
 
 from __future__ import annotations
@@ -36,25 +44,75 @@ from radegs_torch.core.sh import eval_sh_color
 NEAR_PLANE = 0.2  # auxiliary.h:21
 EIG_EPS = 1e-8  # forward.cu:142 well-conditioned threshold
 
+# the table's columns; camera_plane's two columns are [:, :, 0] at 15:18 and
+# [:, :, 1] at 18:21
+COLUMNS = {"xy": slice(0, 2), "conic": slice(2, 5), "opacity": 5, "rgb": slice(6, 9),
+           "ts": 9, "ray_plane": slice(10, 12), "view_point": slice(12, 15),
+           "camera_plane": slice(15, 21), "normal": slice(21, 24)}
+DEPTH = 14  # view_point's z, the sort key
+N_FEAT = 24
+
+
+def column(table, name: str):
+    """The view of field ``name`` (or ``depth``) in ``table``: (P,) or
+    (P, k), camera_plane (P, 3, 2)."""
+    if name == "depth":
+        return table[:, DEPTH]
+    v = table[:, COLUMNS[name]]
+    return v.unflatten(1, (2, 3)).transpose(1, 2) if name == "camera_plane" else v
+
+
+def pack_table(xy, conic, opacity, rgb, ts, ray_plane, view_point, camera_plane, normal):
+    """The fields, (P, k) or (P,) and camera_plane (P, 3, 2), as one (P,
+    N_FEAT) table in ``COLUMNS`` order and their dtype."""
+    return torch.cat([xy, conic, opacity.reshape(-1, 1), rgb, ts.reshape(-1, 1), ray_plane,
+                      view_point, camera_plane[:, :, 0], camera_plane[:, :, 1], normal], dim=1)
+
+
+class _Column:
+    """A float field of ``PreprocessOut``: read-only, its view of the table."""
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, prep, owner=None):
+        return self if prep is None else column(prep.table, self.name)
+
 
 @dataclass(frozen=True)
 class PreprocessOut:
-    """Per-Gaussian rasterization state (rasterizer_impl.cu:190-210)."""
+    """Per-Gaussian rasterization state (rasterizer_impl.cu:190-210): the
+    table and what is not a float of it. The float fields are views of the
+    table, so none can be replaced apart from it."""
 
+    table: torch.Tensor  # (P, N_FEAT) in COLUMNS order, opacity 0 where not valid
     valid: torch.Tensor  # (P,)   bool — survives culling and has nonzero extent
-    xy: torch.Tensor  # (P,2)  projected centre, pixel coords
-    depth: torch.Tensor  # (P,)   view-space z (sort key)
-    view_point: torch.Tensor  # (P,3)  view-space centre
-    conic: torch.Tensor  # (P,3)  inverse filtered 2D covariance (a, b, c)
-    opacity: torch.Tensor  # (P,)   opacity * mip coefficient
-    rgb: torch.Tensor  # (P,3)  SH-evaluated colour
-    camera_plane: torch.Tensor  # (P,3,2)
-    ray_plane: torch.Tensor  # (P,2)
-    normal: torch.Tensor  # (P,3)  view-space unit normal
-    ts: torch.Tensor  # (P,)   ray-space distance of the centre
     radius: torch.Tensor  # (P,)   screen-space radius (0 when culled)
     well_conditioned: torch.Tensor  # (P,) bool — Sigma invertible
     invraycov: torch.Tensor | None = None  # (P,3,3) inverse ray-space covariance
+
+    xy = _Column()  # (P,2)  projected centre, pixel coords
+    depth = _Column()  # (P,)   view-space z (sort key)
+    view_point = _Column()  # (P,3)  view-space centre
+    conic = _Column()  # (P,3)  inverse filtered 2D covariance (a, b, c)
+    opacity = _Column()  # (P,)   opacity * mip coefficient
+    rgb = _Column()  # (P,3)  SH-evaluated colour
+    camera_plane = _Column()  # (P,3,2)
+    ray_plane = _Column()  # (P,2)
+    normal = _Column()  # (P,3)  view-space unit normal
+    ts = _Column()  # (P,)   ray-space distance of the centre
+
+    @classmethod
+    def from_fields(cls, valid, radius, well_conditioned, *, xy, conic, opacity, rgb, ts,
+                    ray_plane, view_point, camera_plane, normal,
+                    invraycov=None) -> "PreprocessOut":
+        """The fields packed into a table (``pack_table``), opacity zeroed
+        where a row is not valid."""
+        opacity = torch.where(valid, opacity.reshape(-1), 0.0)
+        table = pack_table(xy=xy, conic=conic, opacity=opacity, rgb=rgb, ts=ts,
+                           ray_plane=ray_plane, view_point=view_point,
+                           camera_plane=camera_plane, normal=normal)
+        return cls(table, valid, radius, well_conditioned, invraycov)
 
     def replace(self, **kw) -> "PreprocessOut":
         return replace(self, **kw)
@@ -263,19 +321,7 @@ def preprocess_gaussians(
     valid = in_front & nonsingular & (radius > 0)
     radius = torch.where(valid, radius, 0.0)
 
-    return PreprocessOut(
-        valid=valid,
-        xy=xy,
-        depth=p_view[:, 2],
-        view_point=p_view,
-        conic=conic,
-        opacity=opac * coef,
-        rgb=rgb,
-        camera_plane=cp,
-        ray_plane=ray_plane,
-        normal=normal,
-        ts=ts,
-        radius=radius,
-        well_conditioned=well,
-        invraycov=invraycov,
-    )
+    return PreprocessOut.from_fields(valid, radius, well, xy=xy, conic=conic,
+                                     opacity=opac * coef, rgb=rgb, ts=ts, ray_plane=ray_plane,
+                                     view_point=p_view, camera_plane=cp, normal=normal,
+                                     invraycov=invraycov)

@@ -26,7 +26,10 @@
 //      are written as zeros.
 //   2. grad_segment_sum: one warp per Gaussian adds its rows in that order,
 //      then the ray-plane and camera-plane terms of d(xy), which are linear
-//      in the summed rows and constant per Gaussian.
+//      in the summed rows and constant per Gaussian, and stores each sum at
+//      its column of the per-Gaussian table (the gradient of the table the
+//      preprocess wrote) with xy_abs after it, so the preprocess backward
+//      reads the buffer as it stands.
 // No atomics: two runs, and G = 1 against G = 2, give the same bits.
 //
 // What bounds it on an H100: FP32 operations. A walked (instance, pixel)
@@ -63,12 +66,14 @@
 //     full sectors), SEG_BATCH rows in flight per warp;
 //   - a tile stops walking when all its pixels have ended (T < 1e-4).
 //
-// Inputs: feat (P, 24) float32 (blend_common.cuh layout), gauss_id (N,),
-// tile_start / tile_count (T,), aux (T, 28, 256) float32 cotangents and
-// forward totals (layout in radegs_torch/ops/blend.py:pack_aux), med_pos
-// (T, 256) int32, rank / seg (radegs_torch/ops/blend.py:instance_segments).
-// Output: grad (P, 25) float32 in the row layout of pallas_blend.py:579-581;
-// inst_rows (N, ROW) is scratch.
+// Inputs: feat (P, 24) float32, the per-Gaussian table (blend_common.cuh
+// layout), gauss_id (N,), tile_start / tile_count (T,), aux (T, 28, 256)
+// float32 cotangents and forward totals (layout in
+// radegs_torch/ops/blend.py:pack_aux), med_pos (T, 256) int32, rank / seg
+// (radegs_torch/ops/blend.py:instance_segments).
+// Output: grad (P, 26) float32: columns 0:24 the gradient of the table in
+// its own column order, 24 xy_abs, 25 zero; inst_rows (N, ROW) is scratch,
+// each row in the lane order of pallas_blend.py:579-581 (grad_column).
 
 #include <cstddef>
 #include <cstdint>
@@ -81,7 +86,8 @@ using namespace radegs;
 
 namespace {
 
-constexpr int N_GRAD = 25;
+constexpr int N_GRAD = 25;     // sums per instance row
+constexpr int GRAD_COLS = 26;  // a Gaussian's gradient: the table's 24 columns, xy_abs, 0
 constexpr int N_AUX = 28;
 constexpr int K = 4;        // pixels per thread: 2, 4 or 8
 constexpr int RB = 8;       // instances per round
@@ -393,13 +399,27 @@ blend_bwd_kernel(const float4* __restrict__ feat, const int* __restrict__ gauss_
   }
 }
 
+// The gradient buffer's column of lane c's sum (the instance rows' order,
+// pallas_blend.py:579-581: xy, xy_abs, conic, opacity, rgb, view_point,
+// camera_plane x, camera_plane y, ray_plane, normal, ts): the table's column
+// (blend_common.cuh), xy_abs at 24, lane 25 the zero at 25.
+__device__ __forceinline__ int grad_column(int c) {
+  if (c < 2) return c;        // xy
+  if (c == 2) return 24;      // xy_abs
+  if (c < 10) return c - 1;   // conic, opacity, rgb: 2:9
+  if (c < 19) return c + 2;   // view_point, camera_plane: 12:21
+  if (c < 21) return c - 9;   // ray_plane: 10:12
+  if (c < 24) return c;       // normal
+  return c == 24 ? 9 : c;     // ts; 25
+}
+
 // One warp per Gaussian: lane c < 25 adds column c of the Gaussian's
 // instance rows, which lie together in sorted-position order (SEG_BATCH
 // rows loaded at once; lanes past ROW read nothing, so a buffer of exactly
 // (N, ROW) floats is enough), then lanes 0 and 1 add the ray-plane and
 // camera-plane terms of d(xy): f[10] s_t + f[15] c0 + f[16] c1 + f[17] c2
 // (and f[11], f[18..20]) with s_t the summed dL/dt (column 24) and c the
-// summed dL/dcoord (10..12).
+// summed dL/dcoord (10..12); lane c < 26 stores at grad_column(c).
 __global__ void __launch_bounds__(256)
 grad_segment_sum(const float* __restrict__ inst_rows, const int* __restrict__ seg,
                  const float* __restrict__ feat, float* __restrict__ grad, int num_gauss) {
@@ -429,7 +449,9 @@ grad_segment_sum(const float* __restrict__ inst_rows, const int* __restrict__ se
     acc += lane == 0 ? f[10] * s_t + f[15] * c0 + f[16] * c1 + f[17] * c2
                      : f[11] * s_t + f[18] * c0 + f[19] * c1 + f[20] * c2;
   }
-  if (lane < N_GRAD) grad[(size_t)g * N_GRAD + lane] = acc;
+  if (lane < GRAD_COLS) {
+    grad[(size_t)g * GRAD_COLS + grad_column(lane)] = lane < N_GRAD ? acc : 0.f;
+  }
 }
 
 // The tiles' shared memory exceeds the default 48 KB at G = 2: allow it
@@ -466,7 +488,7 @@ cudaError_t launch_walk(const float4* f, const int* g, const int* ts, const int*
 // num_gauss > 0) and returns cudaGetLastError() (0 on success). rank (N,)
 // gives each instance's row in Gaussian order (the inverse of the stable
 // sort of gauss_id), seg (P + 1,) each Gaussian's first row; inst_rows is
-// (N, ROW) float32 scratch.
+// (N, ROW) float32 scratch; grad is (P, GRAD_COLS) float32.
 extern "C" int radegs_blend_bwd(const void* feat, const void* gauss_id,
                                 const void* tile_start, const void* tile_count,
                                 const void* aux, const void* med_pos, const void* rank,

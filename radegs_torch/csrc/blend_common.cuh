@@ -24,8 +24,10 @@ constexpr float ALPHA_EPS = (float)(1.0 / 255.0);
 constexpr float T_EPS = (float)1e-4;
 constexpr float MAX_ALPHA = (float)0.99;
 
-// feature row (FEAT_LAYOUT of radegs_tpu/ops/pallas_blend.py): 0:2 xy,
-// 2:5 conic (a, b, c), 5 opacity, 6:9 rgb, 9 ts, 10:12 ray_plane,
+// feature row: a row of the per-Gaussian table the preprocess writes, whose
+// layout radegs_torch/core/projection.py (COLUMNS) owns (the FEAT_LAYOUT of
+// radegs_tpu/ops/pallas_blend.py): 0:2 xy, 2:5 conic (a, b, c), 5 opacity
+// (0 where the row is not valid), 6:9 rgb, 9 ts, 10:12 ray_plane,
 // 12:15 view_point, 15:18 camera_plane x, 18:21 camera_plane y, 21:24 normal
 
 // -0.5 (a dx^2 + c dy^2) - b dx dy, rounded op by op (no FMA contraction) in

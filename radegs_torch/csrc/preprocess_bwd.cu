@@ -30,13 +30,12 @@
 //     autograd gives: the clamps pass it at their bounds (clamp and
 //     clamp_min are inclusive), where routes it to the branch taken, the
 //     first smallest scale takes the ill-conditioned branch's gradient; the
-//     opacity's gradient follows the plain output opac * coef on every active
-//     row (the forward writes 0 where a row is not valid, which the blend
-//     masks the same way); an inactive row gets zeros;
-//   - the incoming gradient of each output field is read where autograd
-//     hands it over, at its own pointer and strides (a view of the blend's
-//     gradient rows, an expanded zero, ...), and an absent one (null) reads
-//     as zero: nothing is gathered into a table first;
+//     opacity column's is zero where the row is not valid, as the column
+//     is; an inactive row gets zeros;
+//   - the incoming gradient is the table's, one row of N_FEAT floats a row
+//     (preprocess_common.cuh), read where autograd hands it over at its row
+//     stride (a view of the blend's gradient buffer); none (null) reads as
+//     zero;
 //   - what bounds it on an H100 is bytes: an active row reads its 59
 //     parameter floats (SH degree 3), its 3D filter and active flag and up to
 //     24 cotangent floats, and writes 59 gradient floats (~580 B); the block's
@@ -44,89 +43,25 @@
 //     staged through shared memory as 16-byte loads, and their gradients go
 //     back out through the same buffer as 16-byte stores.
 //
-// The row's arithmetic (row_backward) compiles for the host too: without
-// nvcc the file builds as C++ (g++ -x c++ -ffp-contract=off) into a library
-// with the same C entry that loops over the rows on the CPU, so the tests
-// can hold this source to autograd on a machine without a card.
+// The forward's helpers (the camera's terms, the small products and
+// reductions, the SH basis) are preprocess_common.cuh's, shared with
+// preprocess_fwd.cu. The row's arithmetic (row_backward) compiles for the
+// host too: without nvcc the file builds as C++ (g++ -x c++
+// -ffp-contract=off) into a library with the same C entry that loops over
+// the rows on the CPU, so the tests can hold this source to autograd on a
+// machine without a card.
 //
 // Output, for rows [0, P): the gradients of xyz (P, 3), f_dc (P, 1, 3),
 // f_rest (P, M - 1, 3), scaling (P, 3), rotation (P, 4) and opacity (P, 1),
 // contiguous, float32, in the parameters' own layouts.
 
-#include <math.h>
-#include <stddef.h>
+#include "preprocess_common.cuh"
 
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define HD __host__ __device__ __forceinline__
-#else
-#define HD inline
-struct float4 {
-  float x, y, z, w;
-};
-#endif
+using namespace radegs;
 
 namespace {
 
 constexpr int NT = 128;  // rows (threads) a block
-constexpr int N_COT = 10;
-constexpr float NEAR_PLANE = 0.2f;  // auxiliary.h:21
-constexpr float EIG_EPS = 1e-8f;    // forward.cu:142
-
-constexpr float SH_C0 = 0.28209479177387814f;
-constexpr float SH_C1 = 0.4886025119029199f;
-constexpr float SH_C2_0 = 1.0925484305920792f, SH_C2_1 = -1.0925484305920792f,
-                SH_C2_2 = 0.31539156525252005f, SH_C2_3 = -1.0925484305920792f,
-                SH_C2_4 = 0.5462742152960396f;
-constexpr float SH_C3_0 = -0.5900435899266435f, SH_C3_1 = 2.890611442640554f,
-                SH_C3_2 = -0.4570457994644658f, SH_C3_3 = 0.3731763325901154f,
-                SH_C3_4 = -0.4570457994644658f, SH_C3_5 = 1.445305721320277f,
-                SH_C3_6 = -0.5900435899266435f;
-
-// the forward kernel's rounding: a product that the compiler never contracts
-// into an FMA, and an FMA (the host build compiles with -ffp-contract=off)
-HD float mul_rn(float a, float b) {
-#ifdef __CUDA_ARCH__
-  return __fmul_rn(a, b);
-#else
-  return a * b;
-#endif
-}
-HD float fma_rn(float a, float b, float c) {
-#ifdef __CUDA_ARCH__
-  return __fmaf_rn(a, b, c);
-#else
-  return fmaf(a, b, c);
-#endif
-}
-
-struct Inputs {
-  const float* xyz;        // (P, 3)
-  const float* f_dc;       // (P, 1, 3)
-  const float* f_rest;     // (P, M - 1, 3)
-  const float* scaling;    // (P, 3) log-scales
-  const float4* rotation;  // (P, 4) unnormalised (w, x, y, z)
-  const float* opacity;    // (P, 1) logit
-  const float* filter_3d;  // (P, 1)
-  const bool* active;      // (P,)
-  const float* R;          // (3, 3) camera-to-world rotation, strides r0, r1
-  const float* T;          // (3,) world-to-camera translation, stride t0
-  const float* fovx;       // 0-d
-  const float* fovy;
-  int r0, r1, t0;
-};
-
-// the incoming gradient of one output field: element (i, a, b) at
-// p[i * s[0] + a * s[1] + b * s[2]]; null where autograd has none (zero)
-struct Cot {
-  const float* p;
-  long long s[3];
-};
-// the fields, in the order of ops/preprocess.py's GRAD_FIELDS
-enum { C_XY, C_DEPTH, C_VP, C_CONIC, C_OPAC, C_RGB, C_CP, C_RP, C_NRM, C_TS };
-struct Cots {
-  Cot c[N_COT];
-};
 
 struct Grads {
   float* xyz;
@@ -137,115 +72,15 @@ struct Grads {
   float* opacity;
 };
 
-// one row's incoming gradient
+// one row's incoming gradient: its row of the table's gradient
 struct RowCot {
-  float xy[2], depth, vp[3], conic[3], opac, rgb[3], cp[3][2], rp[2], nrm[3], ts;
+  float xy[2], vp[3], conic[3], opac, rgb[3], cp[3][2], rp[2], nrm[3], ts;
 };
 
 // one row's gradient (f_rest's goes back through the coefficients' buffer)
 struct RowGrad {
   float xyz[3], dc[3], scaling[3], rot[4], opacity;
 };
-
-// The camera's derived terms (core/camera.py), as the forward kernel computes
-// them.
-struct Cam {
-  float w2c[3][3];  // rows of the world-to-camera rotation (R^T)
-  float t[3];
-  float proj[2][4];  // rows 0 and 1 of full_proj = projection @ world_view
-  float centre[3];   // -(R @ T)
-  float fx, fy, limx, limy, width, height;
-};
-
-HD Cam make_cam(const Inputs& in, int width, int height) {
-  Cam c;
-  const float tanx = tanf(mul_rn(*in.fovx, 0.5f)), tany = tanf(mul_rn(*in.fovy, 0.5f));
-  float R[9], T[3];
-  for (int k = 0; k < 9; ++k) R[k] = in.R[(k / 3) * in.r0 + (k % 3) * in.r1];
-  for (int k = 0; k < 3; ++k) T[k] = in.T[k * in.t0];
-  c.fx = (float)width * (1.0f / (2.0f * tanx));
-  c.fy = (float)height * (1.0f / (2.0f * tany));
-  c.limx = 1.3f * tanx;
-  c.limy = 1.3f * tany;
-  const float inv_tx = 1.0f / tanx, inv_ty = 1.0f / tany;
-  for (int i = 0; i < 3; ++i) {
-    for (int j = 0; j < 3; ++j) c.w2c[i][j] = R[3 * j + i];
-    c.t[i] = T[i];
-    c.centre[i] = -(mul_rn(R[3 * i], T[0]) + mul_rn(R[3 * i + 1], T[1]) +
-                    mul_rn(R[3 * i + 2], T[2]));
-  }
-  for (int j = 0; j < 3; ++j) {
-    c.proj[0][j] = inv_tx * c.w2c[0][j];
-    c.proj[1][j] = inv_ty * c.w2c[1][j];
-  }
-  c.proj[0][3] = inv_tx * T[0];
-  c.proj[1][3] = inv_ty * T[1];
-  c.width = (float)width;
-  c.height = (float)height;
-  return c;
-}
-
-// ---- the forward kernel's reductions (see csrc/preprocess_fwd.cu) ----
-HD float sum3(float x0, float x1, float x2) { return (x0 + x2) + x1; }
-HD float norm3(float x0, float x1, float x2) {
-  return sqrtf(sum3(mul_rn(x0, x0), mul_rn(x1, x1), mul_rn(x2, x2)));
-}
-HD float norm4(float x0, float x1, float x2, float x3) {
-  return sqrtf((mul_rn(x0, x0) + mul_rn(x2, x2)) + (mul_rn(x1, x1) + mul_rn(x3, x3)));
-}
-HD float quad(const float (&u)[3], const float (&M)[3][3], const float (&v)[3]) {
-  float y[9];
-  for (int i = 0; i < 3; ++i) {
-    for (int k = 0; k < 3; ++k) y[3 * i + k] = mul_rn(u[i] * M[i][k], v[k]);
-  }
-  return (((y[0] + y[8]) + y[4]) + (y[2] + y[6])) + ((y[1] + y[5]) + (y[3] + y[7]));
-}
-HD float affine(const float* w, const float (&x)[3], float t) {
-  return fma_rn(w[2], x[2], fma_rn(w[1], x[1], mul_rn(w[0], x[0]))) + t;
-}
-HD void mul_bt(const float (&A)[3][3], const float (&B)[3][3], float (&C)[3][3]) {
-  for (int i = 0; i < 3; ++i) {
-    for (int k = 0; k < 3; ++k) {
-      C[i][k] = sum3(mul_rn(A[i][0], B[k][0]), mul_rn(A[i][1], B[k][1]),
-                     mul_rn(A[i][2], B[k][2]));
-    }
-  }
-}
-HD void mul(const float (&A)[3][3], const float (&B)[3][3], float (&C)[3][3]) {
-  for (int i = 0; i < 3; ++i) {
-    for (int k = 0; k < 3; ++k) {
-      C[i][k] = mul_rn(A[i][0], B[0][k]) + mul_rn(A[i][1], B[1][k]) + mul_rn(A[i][2], B[2][k]);
-    }
-  }
-}
-
-template <int D>
-HD void sh_basis(float x, float y, float z, float (&b)[(D + 1) * (D + 1)]) {
-  b[0] = SH_C0;
-  if constexpr (D >= 1) {
-    b[1] = -SH_C1 * y;
-    b[2] = SH_C1 * z;
-    b[3] = -SH_C1 * x;
-  }
-  if constexpr (D >= 2) {
-    const float xx = mul_rn(x, x), yy = mul_rn(y, y), zz = mul_rn(z, z);
-    const float xy = x * y, yz = y * z, xz = x * z;
-    b[4] = SH_C2_0 * xy;
-    b[5] = SH_C2_1 * yz;
-    b[6] = SH_C2_2 * (mul_rn(2.0f, zz) - xx - yy);
-    b[7] = SH_C2_3 * xz;
-    b[8] = SH_C2_4 * (xx - yy);
-    if constexpr (D >= 3) {
-      b[9] = SH_C3_0 * y * (mul_rn(3.0f, xx) - yy);
-      b[10] = SH_C3_1 * xy * z;
-      b[11] = SH_C3_2 * y * (mul_rn(4.0f, zz) - xx - yy);
-      b[12] = SH_C3_3 * z * (mul_rn(2.0f, zz) - mul_rn(3.0f, xx) - mul_rn(3.0f, yy));
-      b[13] = SH_C3_4 * x * (mul_rn(4.0f, zz) - xx - yy);
-      b[14] = SH_C3_5 * z * (xx - yy);
-      b[15] = SH_C3_6 * x * (xx - mul_rn(3.0f, yy));
-    }
-  }
-}
 
 // the gradient of the unit direction (x, y, z) from that of the basis, gb
 template <int D>
@@ -395,6 +230,7 @@ HD void row_backward(const Cam& cam, const float (&p)[3], const float (&ls)[3],
   const float coef = cut ? 0.f : sqrtf(det0 / (det1m + 1e-6f) + 1e-6f);
   const bool nonsingular = det != 0.0f;
   const float det_inv = 1.0f / (nonsingular ? det : 1.0f);
+  const bool valid = in_front && nonsingular && screen_radius(a1, c1, det) > 0.0f;
 
   // ray-space planes and normal
   float A[3][3], cam_inv[3][3];
@@ -449,9 +285,9 @@ HD void row_backward(const Cam& cam, const float (&p)[3], const float (&ls)[3],
   // does (-g (r r) for r = 1 / x; -g ((a / b) / b) for a / b; g / (2 y) for
   // y = sqrt(x)) but for two sums whose terms cancel, taken in closed form
   // (the 2D filter's compensation, the fused filter's ratio).
-  // the view-space centre: view_point, its z (depth) and ts = |pv| (autograd's
-  // norm backward is 0 where the norm is)
-  float g_pv[3] = {g.vp[0], g.vp[1], g.vp[2] + g.depth};
+  // the view-space centre: view_point (its z is the depth) and ts = |pv|
+  // (autograd's norm backward is 0 where the norm is)
+  float g_pv[3] = {g.vp[0], g.vp[1], g.vp[2]};
   if (ts != 0.f) {
     const float k = g.ts / ts;
     for (int a = 0; a < 3; ++a) g_pv[a] += pv[a] * k;
@@ -477,10 +313,11 @@ HD void row_backward(const Cam& cam, const float (&p)[3], const float (&ls)[3],
     g_c1 += g_det * a1;
     g_b0 -= 2.f * b0 * g_det;
   }
-  // the opacity output opac * coef (every active row, as the plain version);
-  // coef = sqrt(det0 / (det1m + 1e-6) + 1e-6) where the 2D filter keeps it,
-  // with det0 and det1m past their clamps there
-  const float g_opac = g.opac * coef;
+  // the opacity column opac * coef, 0 where the row is not valid; coef =
+  // sqrt(det0 / (det1m + 1e-6) + 1e-6) where the 2D filter keeps it, with
+  // det0 and det1m past their clamps there
+  const float g_col = valid ? g.opac : 0.f;
+  const float g_opac = g_col * coef;
   float g_a0 = 0.f, g_c0 = 0.f;
   if (!cut) {
     // x = det0 / den + 1e-6 with den = det1m + 1e-6, both clamps passing:
@@ -490,7 +327,7 @@ HD void row_backward(const Cam& cam, const float (&p)[3], const float (&ls)[3],
     // terms' cancellation
     const float den = det1m + 1e-6f;
     const float gap = kernel_size * (a0 + c0 + kernel_size) + 1e-6f;
-    const float g_x = g.opac * opac / (2.f * coef) / (den * den);
+    const float g_x = g_col * opac / (2.f * coef) / (den * den);
     g_a0 += g_x * (c0 * gap - det0 * kernel_size);
     g_c0 += g_x * (a0 * gap - det0 * kernel_size);
     g_b0 -= 2.f * b0 * gap * g_x;
@@ -720,26 +557,25 @@ HD void row_backward(const Cam& cam, const float (&p)[3], const float (&ls)[3],
   for (int j = 0; j < 3; ++j) o.xyz[j] = g_p[j] + (g_dir[j] - dir[j] * dg) / dn;
 }
 
-HD float cot_at(const Cot& c, size_t i, int a = 0, int b = 0) {
-  return c.p == nullptr ? 0.f
-                        : c.p[(long long)i * c.s[0] + (long long)a * c.s[1] + (long long)b * c.s[2]];
-}
-
-HD void read_cot(const Cots& cs, size_t i, RowCot& g) {
+// row i of the table's gradient (row stride `stride` floats; null reads as zero)
+HD void read_cot(const float* grad, long long stride, size_t i, RowCot& g) {
+  float c[N_FEAT] = {};
+  if (grad != nullptr) {
+    for (int k = 0; k < N_FEAT; ++k) c[k] = grad[(long long)i * stride + k];
+  }
   for (int a = 0; a < 2; ++a) {
-    g.xy[a] = cot_at(cs.c[C_XY], i, a);
-    g.rp[a] = cot_at(cs.c[C_RP], i, a);
+    g.xy[a] = c[COL_XY + a];
+    g.rp[a] = c[COL_RAY_PLANE + a];
   }
   for (int a = 0; a < 3; ++a) {
-    g.vp[a] = cot_at(cs.c[C_VP], i, a);
-    g.conic[a] = cot_at(cs.c[C_CONIC], i, a);
-    g.rgb[a] = cot_at(cs.c[C_RGB], i, a);
-    g.nrm[a] = cot_at(cs.c[C_NRM], i, a);
-    for (int b = 0; b < 2; ++b) g.cp[a][b] = cot_at(cs.c[C_CP], i, a, b);
+    g.vp[a] = c[COL_VIEW_POINT + a];
+    g.conic[a] = c[COL_CONIC + a];
+    g.rgb[a] = c[COL_RGB + a];
+    g.nrm[a] = c[COL_NORMAL + a];
+    for (int b = 0; b < 2; ++b) g.cp[a][b] = c[COL_CAMERA_PLANE + 3 * b + a];
   }
-  g.depth = cot_at(cs.c[C_DEPTH], i);
-  g.opac = cot_at(cs.c[C_OPAC], i);
-  g.ts = cot_at(cs.c[C_TS], i);
+  g.opac = c[COL_OPACITY];
+  g.ts = c[COL_TS];
 }
 
 // the gradient rows of row i but f_rest's
@@ -766,8 +602,9 @@ HD void write_zero_row(const Grads& o, size_t i) {
 // 2^21 rows on an H100, the same bits)
 template <int D>
 __global__ void __launch_bounds__(NT, 3)
-preprocess_bwd_kernel(Inputs in, Cots cots, Grads out, int P, int width, int height, int n_sh,
-                      float kernel_size, float scale_modifier) {
+preprocess_bwd_kernel(Inputs in, const float* __restrict__ grad, long long grad_stride,
+                      Grads out, int P, int width, int height, int n_sh, float kernel_size,
+                      float scale_modifier) {
   constexpr int M = (D + 1) * (D + 1);
   constexpr int REST = (M - 1) * 3;  // f_rest floats a row
   __shared__ Cam cam;
@@ -811,7 +648,7 @@ preprocess_bwd_kernel(Inputs in, Cots cots, Grads out, int P, int width, int hei
     q[3] = q4.w;
     op_logit = in.opacity[i];
     filt = in.filter_3d[i];
-    read_cot(cots, i, g);
+    read_cot(grad, grad_stride, i, g);
   }
   if constexpr (REST > 0) {
     const float* src = in.f_rest + (size_t)row0 * REST;
@@ -844,11 +681,12 @@ preprocess_bwd_kernel(Inputs in, Cots cots, Grads out, int P, int width, int hei
 }
 
 template <int D>
-int launch(const Inputs& in, const Cots& cots, const Grads& out, int P, int width, int height,
-           int n_sh, float kernel_size, float scale_modifier, void* stream) {
+int launch(const Inputs& in, const float* grad, long long grad_stride, const Grads& out, int P,
+           int width, int height, int n_sh, float kernel_size, float scale_modifier,
+           void* stream) {
   const int blocks = (P + NT - 1) / NT;
   preprocess_bwd_kernel<D><<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, cots, out, P, width, height, n_sh, kernel_size, scale_modifier);
+      in, grad, grad_stride, out, P, width, height, n_sh, kernel_size, scale_modifier);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -857,8 +695,8 @@ constexpr int INVALID = static_cast<int>(cudaErrorInvalidValue);
 #else  // the host build: the same rows, one after another
 
 template <int D>
-int launch(const Inputs& in, const Cots& cots, const Grads& out, int P, int width, int height,
-           int n_sh, float kernel_size, float scale_modifier, void*) {
+int launch(const Inputs& in, const float* grad, long long grad_stride, const Grads& out, int P,
+           int width, int height, int n_sh, float kernel_size, float scale_modifier, void*) {
   constexpr int REST = ((D + 1) * (D + 1) - 1) * 3;
   const Cam cam = make_cam(in, width, height);
   float rest[REST > 0 ? REST : 1];
@@ -879,7 +717,7 @@ int launch(const Inputs& in, const Cots& cots, const Grads& out, int P, int widt
     const float q[4] = {q4.x, q4.y, q4.z, q4.w};
     for (int k = 0; k < REST; ++k) rest[k] = in.f_rest[(size_t)i * REST + k];
     RowCot g;
-    read_cot(cots, i, g);
+    read_cot(grad, grad_stride, i, g);
     RowGrad o;
     row_backward<D>(cam, p, ls, dc, rest, q, in.opacity[i], in.filter_3d[i], n_sh, kernel_size,
                     scale_modifier, g, o);
@@ -896,23 +734,24 @@ constexpr int INVALID = 1;
 }  // namespace
 
 // C entry, bound with ctypes by radegs_torch/ops/preprocess.py. The camera's R
-// and T are read at their strides (in floats). `cot_ptrs` and `cot_strides`
-// are host arrays: the 10 incoming gradients' pointers (null for none) in the
-// order xy, depth, view_point, conic, opacity, rgb, camera_plane, ray_plane,
-// normal, ts, and three strides of each (in floats; a field of fewer
-// dimensions pads with 0). `sh_degree` (0-3) is the state's maximum degree,
-// the layout of f_rest; SH bands up to `active_sh_degree` are live. Launches
-// on `stream` and returns cudaGetLastError() (0 on success); the host build
-// runs the rows and returns 0.
+// and T are read at their strides (in floats). `grad` is the table's incoming
+// gradient, (P, N_FEAT) float32 with unit column stride and row stride
+// `grad_stride` (in floats; the blend's backward hands over a view of its
+// wider buffer), or null for none (zeros). `sh_degree` (0-3) is the state's
+// maximum degree, the layout of f_rest; SH bands up to `active_sh_degree` are
+// live. Launches on `stream` and returns cudaGetLastError() (0 on success);
+// the host build runs the rows and returns 0.
 extern "C" int radegs_preprocess_bwd(
     const void* xyz, const void* f_dc, const void* f_rest, const void* scaling,
     const void* rotation, const void* opacity, const void* filter_3d, const void* active,
-    const void* R, const void* T, const void* fovx, const void* fovy, const void* cot_ptrs,
-    const void* cot_strides, void* g_xyz, void* g_f_dc, void* g_f_rest, void* g_scaling,
-    void* g_rotation, void* g_opacity, int r_stride0, int r_stride1, int t_stride, int P,
+    const void* R, const void* T, const void* fovx, const void* fovy, const void* grad,
+    void* g_xyz, void* g_f_dc, void* g_f_rest, void* g_scaling, void* g_rotation,
+    void* g_opacity, int grad_stride, int r_stride0, int r_stride1, int t_stride, int P,
     int width, int height, int sh_degree, int active_sh_degree, float kernel_size,
     float scale_modifier, void* stream) {
-  if (sh_degree < 0 || sh_degree > 3 || active_sh_degree < 0 || P < 0) return INVALID;
+  if (sh_degree < 0 || sh_degree > 3 || active_sh_degree < 0 || P < 0 || grad_stride < 0) {
+    return INVALID;
+  }
   if (P == 0) return 0;
   const Inputs in{static_cast<const float*>(xyz),      static_cast<const float*>(f_dc),
                   static_cast<const float*>(f_rest),   static_cast<const float*>(scaling),
@@ -922,21 +761,23 @@ extern "C" int radegs_preprocess_bwd(
                   static_cast<const float*>(fovx),     static_cast<const float*>(fovy),
                   r_stride0,                           r_stride1,
                   t_stride};
-  Cots cots;
-  const void* const* ptrs = static_cast<const void* const*>(cot_ptrs);
-  const long long* strides = static_cast<const long long*>(cot_strides);
-  for (int k = 0; k < N_COT; ++k) {
-    cots.c[k].p = static_cast<const float*>(ptrs[k]);
-    for (int a = 0; a < 3; ++a) cots.c[k].s[a] = strides[3 * k + a];
-  }
+  const auto* g = static_cast<const float*>(grad);
   const Grads out{static_cast<float*>(g_xyz),     static_cast<float*>(g_f_dc),
                   static_cast<float*>(g_f_rest),  static_cast<float*>(g_scaling),
                   static_cast<float4*>(g_rotation), static_cast<float*>(g_opacity)};
   const int n_sh = (active_sh_degree + 1) * (active_sh_degree + 1);
   switch (sh_degree) {
-    case 0: return launch<0>(in, cots, out, P, width, height, n_sh, kernel_size, scale_modifier, stream);
-    case 1: return launch<1>(in, cots, out, P, width, height, n_sh, kernel_size, scale_modifier, stream);
-    case 2: return launch<2>(in, cots, out, P, width, height, n_sh, kernel_size, scale_modifier, stream);
-    default: return launch<3>(in, cots, out, P, width, height, n_sh, kernel_size, scale_modifier, stream);
+    case 0:
+      return launch<0>(in, g, grad_stride, out, P, width, height, n_sh, kernel_size,
+                       scale_modifier, stream);
+    case 1:
+      return launch<1>(in, g, grad_stride, out, P, width, height, n_sh, kernel_size,
+                       scale_modifier, stream);
+    case 2:
+      return launch<2>(in, g, grad_stride, out, P, width, height, n_sh, kernel_size,
+                       scale_modifier, stream);
+    default:
+      return launch<3>(in, g, grad_stride, out, P, width, height, n_sh, kernel_size,
+                       scale_modifier, stream);
   }
 }

@@ -31,11 +31,12 @@
 //   - an inactive row reads only its active flag: the staging skips the
 //     16-byte parts that touch no active row, and a block with no active row
 //     stages nothing;
-//   - the feature row is written as six float4 in the column order of
-//     ops/blend.py pack_features (N_FEAT), so the table is the blend's
-//     feature table; the camera's derived terms (tangents, focals, the view
-//     and projection rows, its centre) are computed once a block from R, T,
-//     fovx and fovy in device memory, so nothing is read back to the host.
+//   - the feature row is written as six float4 in the table's column order
+//     (preprocess_common.cuh; its owner is core/projection.py COLUMNS), so
+//     the table is the blend's feature table; the camera's derived terms
+//     (tangents, focals, the view and projection rows, its centre) are
+//     computed once a block from R, T, fovx and fovy in device memory, so
+//     nothing is read back to the host.
 // Arithmetic: the plain version's float32, rounded as PyTorch's CUDA kernels
 // round it, so the two agree bit for bit (a last-bit difference in a conic
 // or an opacity moves a pixel's 1/255 alpha gate): its formulas, clamps and
@@ -47,9 +48,9 @@
 // __fmul_rn, which the compiler never contracts into an FMA; each small
 // reduction in the order PyTorch's reduce kernel takes (sum3, quad, norm3,
 // norm4, mul, mul_bt, the SH sum; measured on the card against PyTorch
-// 2.11).
+// 2.11). preprocess_common.cuh holds those helpers, shared with the backward.
 //
-// Output, for rows [0, P): feat (P, 24) float32, the columns xy 0:2, conic
+// Output, for rows [0, P): feat (P, N_FEAT) float32, the columns xy 0:2, conic
 // 2:5, opacity 5 (0 on a row that is not valid), rgb 6:9, ts 9, ray_plane
 // 10:12, view_point 12:15, camera_plane[:, :, 0] 15:18, camera_plane[:, :, 1]
 // 18:21, normal 21:24; radius (P,) float32 (0 where not valid); valid and
@@ -58,89 +59,21 @@
 
 #include <cuda_runtime.h>
 
+#include "preprocess_common.cuh"
+
+using namespace radegs;
+
 namespace {
 
 constexpr int NT = 128;  // rows (threads) a block
-constexpr int N_FEAT = 24;
-constexpr float NEAR_PLANE = 0.2f;  // auxiliary.h:21
-constexpr float EIG_EPS = 1e-8f;    // forward.cu:142
-
-constexpr float SH_C0 = 0.28209479177387814f;
-constexpr float SH_C1 = 0.4886025119029199f;
-constexpr float SH_C2_0 = 1.0925484305920792f, SH_C2_1 = -1.0925484305920792f,
-                SH_C2_2 = 0.31539156525252005f, SH_C2_3 = -1.0925484305920792f,
-                SH_C2_4 = 0.5462742152960396f;
-constexpr float SH_C3_0 = -0.5900435899266435f, SH_C3_1 = 2.890611442640554f,
-                SH_C3_2 = -0.4570457994644658f, SH_C3_3 = 0.3731763325901154f,
-                SH_C3_4 = -0.4570457994644658f, SH_C3_5 = 1.445305721320277f,
-                SH_C3_6 = -0.5900435899266435f;
-
-struct Inputs {
-  const float* xyz;        // (P, 3)
-  const float* f_dc;       // (P, 1, 3)
-  const float* f_rest;     // (P, M - 1, 3)
-  const float* scaling;    // (P, 3) log-scales
-  const float4* rotation;  // (P, 4) unnormalised (w, x, y, z)
-  const float* opacity;    // (P, 1) logit
-  const float* filter_3d;  // (P, 1)
-  const bool* active;      // (P,)
-  const float* R;          // (3, 3) camera-to-world rotation, strides r0, r1
-  const float* T;          // (3,) world-to-camera translation, stride t0
-  const float* fovx;       // 0-d
-  const float* fovy;
-  int r0, r1, t0;
-};
 
 struct Outputs {
-  float4* feat;  // (P, 24) as six float4 a row
+  float4* feat;  // (P, N_FEAT) as six float4 a row
   float* radius;
   bool* valid;
   bool* well;
   float* invraycov;  // (P, 3, 3), or null
 };
-
-// The camera's derived terms (core/camera.py), as PyTorch computes them.
-struct Cam {
-  float w2c[3][3];  // rows of the world-to-camera rotation (R^T)
-  float t[3];
-  float proj[2][4];  // rows 0 and 1 of full_proj = projection @ world_view: a scaled w2c row and t
-  float centre[3];   // -(R @ T)
-  float fx, fy, limx, limy, width, height;
-};
-
-__device__ Cam make_cam(const Inputs& in, int width, int height) {
-  Cam c;
-  const float tanx = tanf(__fmul_rn(*in.fovx, 0.5f)), tany = tanf(__fmul_rn(*in.fovy, 0.5f));
-  float R[9], T[3];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) R[k] = in.R[(k / 3) * in.r0 + (k % 3) * in.r1];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) T[k] = in.T[k * in.t0];
-  // `width / x` and `1.0 / x` of a tensor x are PyTorch's reciprocal(x) * width
-  c.fx = (float)width * (1.0f / (2.0f * tanx));
-  c.fy = (float)height * (1.0f / (2.0f * tany));
-  c.limx = 1.3f * tanx;
-  c.limy = 1.3f * tany;
-  const float inv_tx = 1.0f / tanx, inv_ty = 1.0f / tany;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) c.w2c[i][j] = R[3 * j + i];
-    c.t[i] = T[i];
-    c.centre[i] = -(__fmul_rn(R[3 * i], T[0]) + __fmul_rn(R[3 * i + 1], T[1]) +
-                    __fmul_rn(R[3 * i + 2], T[2]));
-  }
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    c.proj[0][j] = inv_tx * c.w2c[0][j];
-    c.proj[1][j] = inv_ty * c.w2c[1][j];
-  }
-  c.proj[0][3] = inv_tx * T[0];
-  c.proj[1][3] = inv_ty * T[1];
-  c.width = (float)width;
-  c.height = (float)height;
-  return c;
-}
 
 // the row of an inactive splat
 template <bool INV>
@@ -154,92 +87,6 @@ __device__ __forceinline__ void write_culled(const Outputs& o, int i) {
   if constexpr (INV) {
 #pragma unroll
     for (int k = 0; k < 9; ++k) o.invraycov[(size_t)i * 9 + k] = 0.f;
-  }
-}
-
-// PyTorch's sum over a last dimension of 3 (x.sum(-1)): lanes 0 and 2, then 1
-__device__ __forceinline__ float sum3(float x0, float x1, float x2) { return (x0 + x2) + x1; }
-
-// torch.linalg.vector_norm over a last dimension of 3 and of 4
-__device__ __forceinline__ float norm3(float x0, float x1, float x2) {
-  return sqrtf(sum3(__fmul_rn(x0, x0), __fmul_rn(x1, x1), __fmul_rn(x2, x2)));
-}
-__device__ __forceinline__ float norm4(float x0, float x1, float x2, float x3) {
-  return sqrtf((__fmul_rn(x0, x0) + __fmul_rn(x2, x2)) + (__fmul_rn(x1, x1) + __fmul_rn(x3, x3)));
-}
-
-// u^T M v as core/projection.py _quad: the products (u_i M_ik) v_k, summed
-// over their row-major index y in PyTorch's order for a (P, 3, 3).sum((1, 2))
-__device__ __forceinline__ float quad(const float (&u)[3], const float (&M)[3][3],
-                                      const float (&v)[3]) {
-  float y[9];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) y[3 * i + k] = __fmul_rn(u[i] * M[i][k], v[k]);
-  }
-  return (((y[0] + y[8]) + y[4]) + (y[2] + y[6])) + ((y[1] + y[5]) + (y[3] + y[7]));
-}
-
-// a (P,3) x (3,3)^T product plus a bias, as cuBLAS and the add give it:
-// w . x by FMAs over k in order, then + t
-__device__ __forceinline__ float affine(const float* w, const float (&x)[3], float t) {
-  return __fmaf_rn(w[2], x[2], __fmaf_rn(w[1], x[1], __fmul_rn(w[0], x[0]))) + t;
-}
-
-// A B^T for 3x3 A, B: core/projection.py _bmm3(A, B.transpose), whose
-// operand layout has PyTorch sum over j as sum3 does
-__device__ __forceinline__ void mul_bt(const float (&A)[3][3], const float (&B)[3][3],
-                                       float (&C)[3][3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      C[i][k] = sum3(__fmul_rn(A[i][0], B[k][0]), __fmul_rn(A[i][1], B[k][1]),
-                     __fmul_rn(A[i][2], B[k][2]));
-    }
-  }
-}
-
-// A B for 3x3 A, B: _bmm3(A, B) of contiguous operands, a sum over j in order
-__device__ __forceinline__ void mul(const float (&A)[3][3], const float (&B)[3][3],
-                                    float (&C)[3][3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      C[i][k] = __fmul_rn(A[i][0], B[0][k]) + __fmul_rn(A[i][1], B[1][k]) +
-                __fmul_rn(A[i][2], B[2][k]);
-    }
-  }
-}
-
-// the real SH basis of degree D at unit direction (x, y, z) (core/sh.py sh_basis)
-template <int D>
-__device__ __forceinline__ void sh_basis(float x, float y, float z, float (&b)[(D + 1) * (D + 1)]) {
-  b[0] = SH_C0;
-  if constexpr (D >= 1) {
-    b[1] = -SH_C1 * y;
-    b[2] = SH_C1 * z;
-    b[3] = -SH_C1 * x;
-  }
-  if constexpr (D >= 2) {
-    const float xx = __fmul_rn(x, x), yy = __fmul_rn(y, y), zz = __fmul_rn(z, z);
-    const float xy = x * y, yz = y * z, xz = x * z;
-    b[4] = SH_C2_0 * xy;
-    b[5] = SH_C2_1 * yz;
-    b[6] = SH_C2_2 * (__fmul_rn(2.0f, zz) - xx - yy);
-    b[7] = SH_C2_3 * xz;
-    b[8] = SH_C2_4 * (xx - yy);
-    if constexpr (D >= 3) {
-      b[9] = SH_C3_0 * y * (__fmul_rn(3.0f, xx) - yy);
-      b[10] = SH_C3_1 * xy * z;
-      b[11] = SH_C3_2 * y * (__fmul_rn(4.0f, zz) - xx - yy);
-      b[12] = SH_C3_3 * z * (__fmul_rn(2.0f, zz) - __fmul_rn(3.0f, xx) - __fmul_rn(3.0f, yy));
-      b[13] = SH_C3_4 * x * (__fmul_rn(4.0f, zz) - xx - yy);
-      b[14] = SH_C3_5 * z * (xx - yy);
-      b[15] = SH_C3_6 * x * (xx - __fmul_rn(3.0f, yy));
-    }
   }
 }
 
@@ -395,10 +242,7 @@ preprocess_fwd_kernel(Inputs in, Outputs out, int P, int width, int height, int 
   const float det_inv = 1.0f / (nonsingular ? det : 1.0f);
 
   // ---- screen-space radius (forward.cu:391-398) ----
-  const float mid = __fmul_rn(0.5f, a1 + c1);
-  const float disc = sqrtf(fmaxf(__fmul_rn(mid, mid) - det, 0.1f));
-  const float lam_max = fmaxf(mid + disc, mid - disc);
-  const float radius = ceilf(3.0f * sqrtf(fmaxf(lam_max, 0.0f)));
+  const float radius = screen_radius(a1, c1, det);
   const bool valid = in_front && nonsingular && radius > 0.0f;
 
   // ---- ray-space planes and normal (forward.cu:135-262) ----

@@ -16,17 +16,18 @@ op exp(power)), skipped if < 1/255; if T (1 - alpha) < 1e-4 the pixel is
 done and that contributor is excluded; otherwise it accumulates with
 w = alpha T. The median is the last included contributor with T > 0.5.
 
-``inputs`` is the tuple (xy, conic, opacity, rgb, view_point, camera_plane,
-ray_plane, normal, ts) of per-Gaussian (P, k) tensors.
+``table`` is the per-Gaussian table of the preprocess (P, 24)
+(``core/projection.py``: its columns, opacity 0 where a row is not valid).
 
 The backward re-walks each pixel's contributors front to back with the
 forward's gates, and gets each contributor's "everything behind me" term as
 (total - inclusive prefix) + g_tf T_final, over 1 - alpha. The cotangents
 are constant along a pixel's walk, so the per-channel prefixes collapse into
 one prefix of w dL/dw (the identity of pallas_blend.py:738-743). It returns
-per-Gaussian gradients for the nine inputs plus the GOF densification side
-channel ``xy_abs`` = sum |e_x| W/2 + |e_y| H/2 (rasterize.py:344-347), as
-(P, 2) with column 1 zero.
+one (P, GRAD_COLS) buffer: the gradient of the table in the table's column
+order, then the GOF densification side channel ``xy_abs`` = sum |e_x| W/2 +
+|e_y| H/2 (rasterize.py:344-347) at ``XY_ABS`` and a zero column, so
+``[:, XY_ABS:]`` is xy_abs's (P, 2) gradient with column 1 zero.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from radegs_torch.core.projection import COLUMNS, N_FEAT, column
 from radegs_torch.native import build
 from radegs_torch.ops.binning import TILE, TileBinning, tile_grid
 from radegs_torch.utils import trace
@@ -46,9 +48,8 @@ ALPHA_EPS = 1.0 / 255.0
 T_EPS = 1e-4
 MAX_ALPHA = 0.99
 N_OUT = 17
-N_FEAT = 24
-
-N_GRAD = 25
+XY_ABS = N_FEAT  # the gradient buffer: the table's columns, xy_abs, a zero
+GRAD_COLS = N_FEAT + 2
 N_AUX = 28
 INST_ROW = 32  # floats per instance row of the backward kernel's scratch (ROW)
 # the raw outputs that carry a cotangent (med_pos does not)
@@ -101,12 +102,13 @@ class _Walk(NamedTuple):
     coord: torch.Tensor  # (3, T, 256)
 
 
-def _walk_step(column, done, t_cur, inputs, pix_x, pix_y) -> _Walk:
-    """Contributor ``column`` ((T,) ids, -1 for none) of every tile against
+def _walk_step(step, done, t_cur, table, pix_x, pix_y) -> _Walk:
+    """Contributor ``step`` ((T,) ids, -1 for none) of every tile against
     every pixel, through the forward's gates. Both plain versions walk with
     it, so they take the same skip / blend / stop decisions."""
-    xy, conic, opacity, rgb, view_point, camera_plane, ray_plane, normal, ts = inputs
-    ids = column.to(torch.int64)
+    xy, conic, ts = column(table, "xy"), column(table, "conic"), column(table, "ts")
+    ray_plane, camera_plane = column(table, "ray_plane"), column(table, "camera_plane")
+    ids = step.to(torch.int64)
     live = (ids >= 0)[:, None] & ~done
     ids = ids.clamp_min(0)
     dx = xy[ids, 0, None] - pix_x
@@ -115,7 +117,7 @@ def _walk_step(column, done, t_cur, inputs, pix_x, pix_y) -> _Walk:
     power = (-0.5 * (con[:, 0, None] * dx * dx + con[:, 2, None] * dy * dy)
              - con[:, 1, None] * dx * dy)
     fall = torch.exp(torch.clamp_max(power, 0.0))
-    raw = opacity.reshape(-1)[ids, None] * fall
+    raw = column(table, "opacity")[ids, None] * fall
     alpha = torch.clamp_max(raw, MAX_ALPHA)
     cand = live & (power <= 0.0) & (alpha >= ALPHA_EPS)
     next_t = t_cur * (1.0 - alpha)
@@ -123,13 +125,13 @@ def _walk_step(column, done, t_cur, inputs, pix_x, pix_y) -> _Walk:
     inc = cand & ~term
     t_ray = ts[ids, None] + ray_plane[ids, 0, None] * dx + ray_plane[ids, 1, None] * dy
     cp = camera_plane[ids].permute(1, 2, 0)  # (3, 2, T)
-    coord = (view_point[ids].T[:, :, None] + cp[:, 0, :, None] * dx
+    coord = (column(table, "view_point")[ids].T[:, :, None] + cp[:, 0, :, None] * dx
              + cp[:, 1, :, None] * dy)  # (3, T, 256)
     return _Walk(ids, live, dx, dy, con, fall, raw, alpha, next_t, term, inc,
                  torch.where(inc, alpha * t_cur, 0.0), t_ray, coord)
 
 
-def blend_forward_torch(tile_gauss, inputs, width: int, height: int,
+def blend_forward_torch(tile_gauss, table, width: int, height: int,
                         count_work: bool = False):
     """Plain version of the kernel: every tile walks its (T, K) front-to-back
     id list (-1 padded) one contributor at a time, all pixels at once.
@@ -141,8 +143,8 @@ def blend_forward_torch(tile_gauss, inputs, width: int, height: int,
     tile column) pairs with a walked pixel: the terms of one dy or one dx)
     and ``n_col_incl`` ((contributor, tile column) pairs with a blended
     pixel) — the work the kernel's operation count is taken from."""
-    _, _, _, rgb, _, _, _, normal, _ = inputs
-    dev = rgb.device
+    rgb, normal = column(table, "rgb"), column(table, "normal")
+    dev = table.device
     T_tiles, K = tile_gauss.shape
     pix_x, pix_y = tile_pixel_coords(width, height, dev)
     f32 = torch.float32
@@ -165,7 +167,7 @@ def blend_forward_torch(tile_gauss, inputs, width: int, height: int,
     n_col_incl = torch.zeros((), dtype=torch.int64, device=dev)
 
     for k in range(K):
-        s = _walk_step(tile_gauss[:, k], done, t_cur, inputs, pix_x, pix_y)
+        s = _walk_step(tile_gauss[:, k], done, t_cur, table, pix_x, pix_y)
         acc_c += s.w * rgb[s.ids].T[:, :, None]
         acc_w += s.w
         acc_d += s.w * s.t_ray
@@ -204,40 +206,22 @@ def blend_forward_torch(tile_gauss, inputs, width: int, height: int,
     return out
 
 
-def grads_from_rows(rows):
-    """(P, 25) per-Gaussian gradient rows -> the gradient dict. Row layout
-    (pallas_blend.py:579-581): 0:2 xy, 2 xy_abs, 3:6 conic, 6 opacity, 7:10
-    rgb, 10:13 view_point, 13:16 camera_plane[:, :, 0], 16:19
-    camera_plane[:, :, 1], 19:21 ray_plane, 21:24 normal, 24 ts."""
-    return {
-        "xy": rows[:, 0:2],
-        "xy_abs": torch.stack([rows[:, 2], torch.zeros_like(rows[:, 2])], dim=-1),
-        "conic": rows[:, 3:6],
-        "opacity": rows[:, 6],
-        "rgb": rows[:, 7:10],
-        "view_point": rows[:, 10:13],
-        "camera_plane": torch.stack([rows[:, 13:16], rows[:, 16:19]], dim=-1),
-        "ray_plane": rows[:, 19:21],
-        "normal": rows[:, 21:24],
-        "ts": rows[:, 24],
-    }
-
-
-def blend_backward_torch(tile_gauss, inputs, fwd_out, cot, width: int, height: int,
+def blend_backward_torch(tile_gauss, table, fwd_out, cot, width: int, height: int,
                          ndc_size=None):
     """Plain version of the backward kernel (port of ``_blend_backward_scan``,
     rasterize.py:219-405): every tile re-walks its (T, K) front-to-back id
     list one contributor at a time, all pixels at once, with the forward's
-    gates; each contributor's 25 pixel sums are added to its Gaussian with
-    ``index_add_``. ``fwd_out`` is the forward's raw dict, ``cot`` a dict of
-    cotangents for ``DIFF_KEYS`` in the same layouts. ``ndc_size``: the
+    gates; each contributor's pixel sums are added to its Gaussian's row of
+    the (P, GRAD_COLS) gradient buffer with ``index_add_``. ``fwd_out`` is
+    the forward's raw dict, ``cot`` a dict of cotangents for ``DIFF_KEYS``
+    in the same layouts. ``ndc_size``: the
     (width, height) that scales the GOF abs gradient to NDC units (default
     the render's; a band passes the full image's)."""
     half_w, half_h = (0.5 * s for s in (ndc_size or (width, height)))
-    _, _, opacity, rgb, _, camera_plane, ray_plane, normal, _ = inputs
-    op = opacity.reshape(-1)
-    dev = op.device
-    P = op.shape[0]
+    op, rgb, normal = column(table, "opacity"), column(table, "rgb"), column(table, "normal")
+    ray_plane, camera_plane = column(table, "ray_plane"), column(table, "camera_plane")
+    dev = table.device
+    P = table.shape[0]
     T_tiles, K = tile_gauss.shape
     pix_x, pix_y = tile_pixel_coords(width, height, dev)
     f32 = torch.float32
@@ -256,10 +240,10 @@ def blend_backward_torch(tile_gauss, inputs, fwd_out, cot, width: int, height: i
     t_cur = torch.ones((T_tiles, TILE * TILE), dtype=f32, device=dev)
     done = torch.zeros(t_cur.shape, dtype=torch.bool, device=dev)
     pre = torch.zeros_like(t_cur)
-    rows = torch.zeros((P + 1, N_GRAD), dtype=f32, device=dev)  # row P: padding
+    rows = torch.zeros((P + 1, GRAD_COLS), dtype=f32, device=dev)  # row P: padding
 
     for k in range(K):
-        s = _walk_step(tile_gauss[:, k], done, t_cur, inputs, pix_x, pix_y)
+        s = _walk_step(tile_gauss[:, k], done, t_cur, table, pix_x, pix_y)
         ids, w, inc, dx, dy = s.ids, s.w, s.inc, s.dx, s.dy
         ca, cb, cc = s.conic[:, 0, None], s.conic[:, 1, None], s.conic[:, 2, None]
 
@@ -282,14 +266,16 @@ def blend_backward_torch(tile_gauss, inputs, fwd_out, cot, width: int, height: i
         e_x = dL_dG * (-gdx * ca - gdy * cb)
         e_y = dL_dG * (-gdy * cc - gdx * cb)
 
-        # the kernel's 25 pixel sums, in grad-row order; rows 0:2 still lack
-        # the ray-plane and camera-plane terms of d(xy)
+        # the pixel sums in the buffer's column order (the table's, then
+        # xy_abs and a zero); xy still lacks the ray-plane and camera-plane
+        # terms of d(xy)
         sums = torch.stack(
-            [e_x, e_y, e_x.abs() * half_w + e_y.abs() * half_h,
-             -0.5 * gdx * dx * dL_dG, -gdx * dy * dL_dG, -0.5 * gdy * dy * dL_dG,
-             dL_draw * s.fall, *(w * g_c), *dL_dcoord, *(dL_dcoord * dx), *(dL_dcoord * dy),
-             dL_dt * dx, dL_dt * dy, *(w * g_n), dL_dt], dim=1).sum(-1)  # (T, 25)
-        s_t, s_co = sums[:, 24], sums[:, 10:13]
+            [e_x, e_y, -0.5 * gdx * dx * dL_dG, -gdx * dy * dL_dG, -0.5 * gdy * dy * dL_dG,
+             dL_draw * s.fall, *(w * g_c), dL_dt, dL_dt * dx, dL_dt * dy, *dL_dcoord,
+             *(dL_dcoord * dx), *(dL_dcoord * dy), *(w * g_n),
+             e_x.abs() * half_w + e_y.abs() * half_h, torch.zeros_like(e_x)],
+            dim=1).sum(-1)  # (T, GRAD_COLS)
+        s_t, s_co = sums[:, COLUMNS["ts"]], sums[:, COLUMNS["view_point"]]
         rp, cpx, cpy = ray_plane[ids], camera_plane[ids, :, 0], camera_plane[ids, :, 1]
         sums[:, 0] += rp[:, 0] * s_t + (cpx * s_co).sum(-1)
         sums[:, 1] += rp[:, 1] * s_t + (cpy * s_co).sum(-1)
@@ -299,7 +285,7 @@ def blend_backward_torch(tile_gauss, inputs, fwd_out, cot, width: int, height: i
         t_cur = torch.where(inc, s.next_t, t_cur)
         done = done | s.term
 
-    return grads_from_rows(rows[:P])
+    return rows[:P]
 
 
 def pack_raw(raw):
@@ -320,20 +306,9 @@ def unpack_raw(out, med_pos):
     return raw
 
 
-def pack_features(inputs):
-    """(P, 24) float32 feature rows in the kernel's column order (the
-    FEAT_LAYOUT of radegs_tpu/ops/pallas_blend.py)."""
-    xy, conic, opacity, rgb, view_point, camera_plane, ray_plane, normal, ts = inputs
-    return torch.cat(
-        [xy, conic, opacity.reshape(-1, 1), rgb, ts[:, None], ray_plane, view_point,
-         camera_plane[:, :, 0], camera_plane[:, :, 1], normal],
-        dim=1,
-    ).to(torch.float32).contiguous()
-
-
-def _kernel_inputs(binning: TileBinning, inputs, width: int, height: int,
+def _kernel_inputs(binning: TileBinning, table, width: int, height: int,
                    tiles_per_block: int):
-    """Checks shared by both kernels' wrappers; returns (feat, T, tiles_x)."""
+    """Checks shared by both kernels' wrappers; returns (T, tiles_x)."""
     dev = binning.tile_count.device
     if dev.type != "cuda":
         raise ValueError(f"the blend kernels run on cuda or cpu tensors, not {dev}")
@@ -341,15 +316,13 @@ def _kernel_inputs(binning: TileBinning, inputs, width: int, height: int,
         raise ValueError(f"tiles_per_block must be 1 or 2, got {tiles_per_block}")
     tiles_x, tiles_y = tile_grid(width, height)
     T = tiles_x * tiles_y
-    feat = pack_features(inputs)
-    P = feat.shape[0]
-    build.check_tensor("features", feat, torch.float32, (P, N_FEAT), dev)
+    build.check_tensor("table", table, torch.float32, (table.shape[0], N_FEAT), dev)
     build.check_tensor("gauss_id", binning.gauss_id, torch.int32, binning.gauss_id.shape, dev)
     build.check_tensor("tile_start", binning.tile_start, torch.int32, (T,), dev)
     build.check_tensor("tile_count", binning.tile_count, torch.int32, (T,), dev)
-    if feat.data_ptr() % 16:
-        raise ValueError("blend kernel: the feature table must be 16-byte aligned")
-    return feat, T, tiles_x
+    if table.data_ptr() % 16:
+        raise ValueError("blend kernel: the table must be 16-byte aligned")
+    return T, tiles_x
 
 
 def _plain_tile_gauss(binning: TileBinning):
@@ -374,26 +347,26 @@ def _entry(name: str):
     return _resolved(name, build.entry)
 
 
-def blend_forward_packed(binning: TileBinning, inputs, width: int, height: int,
+def blend_forward_packed(binning: TileBinning, table, width: int, height: int,
                          tiles_per_block: int = 2, events: list | None = None):
     """Forward blend of every tile as the packed (T, 17, 256) float32 output
     and the (T, 256) int32 ``med_pos``. On CUDA tensors it launches the
     kernel (``tiles_per_block`` tiles per block, 1 or 2) or raises; on CPU
     tensors it runs ``blend_forward_torch`` over ``binning.tile_gauss``.
-    ``events``: a list that receives a "pack_features" mark after the
-    feature table is packed (CUDA only)."""
+    The kernel reads ``table`` as it stands. ``events``: a list that
+    receives a "pack_features" mark after the input checks (CUDA only)."""
     with trace.span("blend_fwd"):
         if binning.tile_count.device.type == "cpu":
-            raw = blend_forward_torch(_plain_tile_gauss(binning), inputs, width, height)
+            raw = blend_forward_torch(_plain_tile_gauss(binning), table, width, height)
             return pack_raw(raw), raw["med_pos"]
-        feat, T, tiles_x = _kernel_inputs(binning, inputs, width, height, tiles_per_block)
+        T, tiles_x = _kernel_inputs(binning, table, width, height, tiles_per_block)
         mark(events, "pack_features")
-        dev = feat.device
+        dev = table.device
         out = torch.empty((T, N_OUT, TILE * TILE), dtype=torch.float32, device=dev)
         med_pos = torch.empty((T, TILE * TILE), dtype=torch.int32, device=dev)
         with on_device(dev):
             rc = _entry("blend_fwd")(
-                feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
+                table.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
                 binning.tile_count.data_ptr(), out.data_ptr(), med_pos.data_ptr(), T, tiles_x,
                 tiles_per_block, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
@@ -402,10 +375,10 @@ def blend_forward_packed(binning: TileBinning, inputs, width: int, height: int,
         return out, med_pos
 
 
-def blend_forward(binning: TileBinning, inputs, width: int, height: int,
+def blend_forward(binning: TileBinning, table, width: int, height: int,
                   tiles_per_block: int = 2):
     """``blend_forward_packed`` as the raw-output dict."""
-    return unpack_raw(*blend_forward_packed(binning, inputs, width, height, tiles_per_block))
+    return unpack_raw(*blend_forward_packed(binning, table, width, height, tiles_per_block))
 
 
 def pack_aux(fwd_out, cot):
@@ -437,31 +410,32 @@ def instance_segments(gauss_id, P: int):
     return rank, seg.to(torch.int32)
 
 
-def blend_backward(binning: TileBinning, inputs, fwd_out, cot, width: int, height: int,
+def blend_backward(binning: TileBinning, table, fwd_out, cot, width: int, height: int,
                    tiles_per_block: int = 2, ndc_size=None, events: list | None = None):
-    """Per-Gaussian gradients of the blend (the dict of ``grads_from_rows``).
-    On CUDA tensors it launches the kernel pair of ``csrc/blend_bwd.cu`` or
-    raises: the per-tile walk writes one row of 25 sums per instance, the
-    rows of each Gaussian together, then a segment sum adds each Gaussian's
-    rows in sorted-position order (deterministic, no atomics). ``tiles_per_block``
+    """The blend's (P, GRAD_COLS) gradient buffer: the table's gradient, then
+    xy_abs's. On CUDA tensors it launches the kernel pair of
+    ``csrc/blend_bwd.cu`` or raises: the per-tile walk writes one row of 25
+    sums per instance, the rows of each Gaussian together, then a segment
+    sum adds each Gaussian's rows in sorted-position order (deterministic,
+    no atomics) and writes them at their columns. ``tiles_per_block``
     (1 or 2) is the tiles per CUDA block of the walk; both give the same
     bits. On CPU tensors it runs ``blend_backward_torch`` over
     ``binning.tile_gauss``. ``ndc_size``: (width, height) of the GOF abs
     gradient's NDC scale (default the render's; the kernel reads its width
     and height for that scale alone). ``events``: a list that receives
-    marks after the feature table ("bwd_features"), ``pack_aux``,
+    marks after the table's checks ("bwd_features"), ``pack_aux``,
     ``instance_segments``, the walk kernel ("bwd_walk") and the segment sum
     ("bwd_segment_sum"), which the C entry then launches one at a time
     (CUDA only)."""
     if binning.tile_count.device.type == "cpu":
-        return blend_backward_torch(_plain_tile_gauss(binning), inputs, fwd_out, cot,
+        return blend_backward_torch(_plain_tile_gauss(binning), table, fwd_out, cot,
                                     width, height, ndc_size)
     ndc_w, ndc_h = ndc_size or (width, height)
     with trace.span("bwd_features"):
-        feat, T, tiles_x = _kernel_inputs(binning, inputs, width, height, tiles_per_block)
+        T, tiles_x = _kernel_inputs(binning, table, width, height, tiles_per_block)
         mark(events, "bwd_features")
-    dev = feat.device
-    P, N = feat.shape[0], binning.gauss_id.numel()
+    dev = table.device
+    P, N = table.shape[0], binning.gauss_id.numel()
     with trace.span("pack_aux"):
         aux = pack_aux(fwd_out, cot)
         med_pos = fwd_out["med_pos"].to(torch.int32).contiguous()
@@ -472,12 +446,12 @@ def blend_backward(binning: TileBinning, inputs, fwd_out, cot, width: int, heigh
         rank, seg = instance_segments(binning.gauss_id, P)
         mark(events, "instance_segments")
     inst_rows = torch.empty((N, INST_ROW), dtype=torch.float32, device=dev)
-    grad = torch.empty((P, N_GRAD), dtype=torch.float32, device=dev)
+    grad = torch.empty((P, GRAD_COLS), dtype=torch.float32, device=dev)
 
     def launch(num_tiles, num_gauss):  # the walk alone (num_gauss 0), the sum alone (T 0)
         with on_device(dev):
             rc = _entry("blend_bwd")(
-                feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
+                table.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
                 binning.tile_count.data_ptr(), aux.data_ptr(), med_pos.data_ptr(),
                 rank.data_ptr(), seg.data_ptr(), inst_rows.data_ptr(), grad.data_ptr(),
                 num_tiles, tiles_x, N, num_gauss, ndc_w, ndc_h, tiles_per_block,
@@ -492,4 +466,4 @@ def blend_backward(binning: TileBinning, inputs, fwd_out, cot, width: int, heigh
         launch(0, P)
         mark(events, "bwd_segment_sum")
     trace.count("launches.blend", f"blend_bwd[G={tiles_per_block}]")
-    return grads_from_rows(grad)
+    return grad

@@ -8,47 +8,30 @@ fused filtered scales and opacity, normalised rotation, the SH features —
 and ``core/projection.preprocess_gaussians``), which autograd
 differentiates on the CPU.
 
-The kernel writes one (P, 24) float32 table in the forward blend's column
-order (``ops/blend.py`` ``pack_features``, ``N_FEAT``) beside ``radius``,
-``valid``, ``well_conditioned`` and, asked, ``invraycov``; the
-``PreprocessOut`` it returns holds views of that table (``from_table``).
-Its table differs from the plain version's fields where nothing reads them:
-the opacity column is 0 on rows that are not valid (the blend and the
-integrate kernels zero those themselves), and an inactive row is zeros.
+The kernel writes the per-Gaussian table (``core/projection.py``: its
+column order and its contract, opacity 0 where a row is not valid) beside
+``radius``, ``valid``, ``well_conditioned`` and, asked, ``invraycov``; the
+``PreprocessOut`` it returns holds that table. Its inactive rows are zeros,
+where the plain version's are not; nothing reads them.
 
-The backward kernel takes the incoming gradient of each field where autograd
-hands it over (pointers and strides; an absent one reads as zero) and writes
+The backward kernel takes the incoming gradient of the table where autograd
+hands it over (one pointer and a row stride; none reads as zero) and writes
 the gradients of the six parameter tensors in their own layouts: the
-gradient autograd takes through the plain version on every active row (the
-opacity's as if the column were ``opacity * coef`` there too), zeros on an
-inactive one.
+gradient autograd takes through the plain version on every active row,
+zeros on an inactive one.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from radegs_torch.core.projection import PreprocessOut, preprocess_gaussians
+from radegs_torch.core.projection import N_FEAT, PreprocessOut, preprocess_gaussians
 from radegs_torch.models.gaussian_model import GaussianParams
 from radegs_torch.native import build
-from radegs_torch.ops.blend import N_FEAT
 from radegs_torch.utils import trace
 from radegs_torch.utils.device import on_device
 
-# the columns of the table (pack_features' order); camera_plane's two
-# columns are [:, :, 0] at 15:18 and [:, :, 1] at 18:21
-COLUMNS = {"xy": slice(0, 2), "conic": slice(2, 5), "opacity": 5, "rgb": slice(6, 9),
-           "ts": 9, "ray_plane": slice(10, 12), "view_point": slice(12, 15),
-           "camera_plane": slice(15, 21), "normal": slice(21, 24)}
-DEPTH = 14  # view_point's z
 MAX_SH_DEGREE = 3
-
-# the differentiable fields, in the backward kernel's order of incoming
-# gradients, with the number of dimensions of each
-GRAD_FIELDS = (("xy", 2), ("depth", 1), ("view_point", 2), ("conic", 2), ("opacity", 1),
-               ("rgb", 2), ("camera_plane", 3), ("ray_plane", 2), ("normal", 2), ("ts", 1))
 
 # kernel launches per SH degree (the layout of f_rest) and, forward, with /
 # without the inverse ray-space covariance, counted where the wrappers launch
@@ -93,25 +76,37 @@ def preprocess_torch(state, camera, kernel_size: float = 0.0, scaling_modifier: 
     return prep.replace(valid=prep.valid & state.active)
 
 
-def from_table(table, radius, valid, well_conditioned, invraycov=None) -> PreprocessOut:
-    """A ``PreprocessOut`` whose float fields are views of ``table`` (P, 24)."""
-    c = COLUMNS
-    return PreprocessOut(
-        valid=valid,
-        xy=table[:, c["xy"]],
-        depth=table[:, DEPTH],
-        view_point=table[:, c["view_point"]],
-        conic=table[:, c["conic"]],
-        opacity=table[:, c["opacity"]],
-        rgb=table[:, c["rgb"]],
-        camera_plane=table[:, c["camera_plane"]].unflatten(1, (2, 3)).transpose(1, 2),
-        ray_plane=table[:, c["ray_plane"]],
-        normal=table[:, c["normal"]],
-        ts=table[:, c["ts"]],
-        radius=radius,
-        well_conditioned=well_conditioned,
-        invraycov=invraycov,
-    )
+def _kernel_args(state, camera):
+    """The checks both kernels' C entries need of the state and the camera
+    (CUDA tensors, or the CPU's for a host build). Returns their pointers in
+    the entries' order (the state's eight tensors, R, T, fovx, fovy) and
+    the camera's strides (R's two, T's one; ``Camera.look_at``'s R is a
+    transpose)."""
+    p = state.params
+    dev = p.xyz.device
+    D = state.max_sh_degree
+    if not 0 <= D <= MAX_SH_DEGREE:
+        raise ValueError(f"the preprocess kernel takes SH degrees 0-{MAX_SH_DEGREE}, not {D}")
+    P = state.capacity
+    f32 = torch.float32
+    rows = [("xyz", p.xyz, f32, (P, 3)), ("f_dc", p.f_dc, f32, (P, 1, 3)),
+            ("f_rest", p.f_rest, f32, (P, (D + 1) ** 2 - 1, 3)),
+            ("scaling", p.scaling, f32, (P, 3)), ("rotation", p.rotation, f32, (P, 4)),
+            ("opacity", p.opacity, f32, (P, 1)), ("filter_3d", state.filter_3d, f32, (P, 1)),
+            ("active", state.active, torch.bool, (P,))]
+    for name, x, dtype, shape in rows + [("camera.fovx", camera.fovx, f32, ()),
+                                         ("camera.fovy", camera.fovy, f32, ())]:
+        build.check_tensor(name, x, dtype, shape, dev)
+    for name in ("f_rest", "rotation"):  # read as 16-byte words
+        if getattr(p, name).data_ptr() % 16:
+            raise ValueError(f"preprocess kernel: {name} must be 16-byte aligned")
+    for name, x, shape in (("camera.R", camera.R, (3, 3)), ("camera.T", camera.T, (3,))):
+        if x.device != dev or x.dtype != f32 or tuple(x.shape) != shape:
+            raise ValueError(f"kernel input {name} must be a {f32} tensor of shape {shape} on "
+                             f"{dev}; got {x.dtype} {tuple(x.shape)} on {x.device}")
+    ptrs = [x.data_ptr() for _, x, _, _ in rows] + [
+        x.data_ptr() for x in (camera.R, camera.T, camera.fovx, camera.fovy)]
+    return ptrs, (*camera.R.stride(), camera.T.stride(0))
 
 
 def _entry():
@@ -124,126 +119,70 @@ def preprocess_forward(state, camera, kernel_size: float = 0.0,
     """``preprocess_torch``'s result, from one launch of the kernel over the
     state's rows (CUDA tensors only; it raises otherwise, and on a failed
     launch). No gradient flows to the state."""
-    p = state.params
-    dev = p.xyz.device
+    dev = state.params.xyz.device
     if dev.type != "cuda":
         raise ValueError(f"the preprocess kernel runs on cuda tensors, not {dev}")
-    D = state.max_sh_degree
-    if not 0 <= D <= MAX_SH_DEGREE:
-        raise ValueError(f"the preprocess kernel takes SH degrees 0-{MAX_SH_DEGREE}, not {D}")
-    P = state.capacity
-    f32 = torch.float32
-    rows = [("xyz", p.xyz, f32, (P, 3)), ("f_dc", p.f_dc, f32, (P, 1, 3)),
-            ("f_rest", p.f_rest, f32, (P, (D + 1) ** 2 - 1, 3)),
-            ("scaling", p.scaling, f32, (P, 3)), ("rotation", p.rotation, f32, (P, 4)),
-            ("opacity", p.opacity, f32, (P, 1)), ("filter_3d", state.filter_3d, f32, (P, 1)),
-            ("active", state.active, torch.bool, (P,)), ("camera.fovx", camera.fovx, f32, ()),
-            ("camera.fovy", camera.fovy, f32, ())]
-    for name, x, dtype, shape in rows:
-        build.check_tensor(name, x, dtype, shape, dev)
-    for name in ("f_rest", "rotation"):  # read as 16-byte words
-        if getattr(p, name).data_ptr() % 16:
-            raise ValueError(f"preprocess kernel: {name} must be 16-byte aligned")
-    # the camera's R and T are read at their strides (Camera.look_at's R is a
-    # transpose)
-    for name, x, shape in (("camera.R", camera.R, (3, 3)), ("camera.T", camera.T, (3,))):
-        if x.device != dev or x.dtype != f32 or tuple(x.shape) != shape:
-            raise ValueError(f"kernel input {name} must be a {f32} tensor of shape {shape} on "
-                             f"{dev}; got {x.dtype} {tuple(x.shape)} on {x.device}")
+    ptrs, strides = _kernel_args(state, camera)
+    P, D, f32 = state.capacity, state.max_sh_degree, torch.float32
     table = torch.empty((P, N_FEAT), dtype=f32, device=dev)
     radius = torch.empty((P,), dtype=f32, device=dev)
     valid = torch.empty((P,), dtype=torch.bool, device=dev)
     well = torch.empty((P,), dtype=torch.bool, device=dev)
     invraycov = torch.empty((P, 3, 3), dtype=f32, device=dev) if compute_invraycov else None
     with on_device(dev):
-        rc = _entry()(*(x.data_ptr() for _, x, _, _ in rows[:8]), camera.R.data_ptr(),
-                      camera.T.data_ptr(), camera.fovx.data_ptr(), camera.fovy.data_ptr(),
-                      table.data_ptr(), radius.data_ptr(), valid.data_ptr(), well.data_ptr(),
-                      None if invraycov is None else invraycov.data_ptr(), *camera.R.stride(),
-                      camera.T.stride(0), P, camera.width,
-                      camera.height, D, state.active_sh_degree, float(kernel_size),
-                      float(scaling_modifier), torch.cuda.current_stream().cuda_stream)
+        rc = _entry()(*ptrs, table.data_ptr(), radius.data_ptr(), valid.data_ptr(),
+                      well.data_ptr(), None if invraycov is None else invraycov.data_ptr(),
+                      *strides, P, camera.width, camera.height, D, state.active_sh_degree,
+                      float(kernel_size), float(scaling_modifier),
+                      torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"preprocess_fwd kernel launch failed with CUDA error {rc}")
     trace.count("launches.preprocess", f"preprocess_fwd[sh={D},inv={int(compute_invraycov)}]")
-    return from_table(table, radius, valid, well, invraycov)
+    return PreprocessOut(table, valid, radius, well, invraycov)
 
 
 def _bwd_entry():
-    return build.entry("preprocess_bwd", 20, 8, 2)
-
-
-def _cotangents(grads: dict, P: int, dev):
-    """The incoming gradients as the C entry's two host arrays: their
-    pointers (null for a field with none) and three strides each (in
-    floats)."""
-    ptrs = (ctypes.c_void_p * len(GRAD_FIELDS))()
-    strides = (ctypes.c_longlong * (3 * len(GRAD_FIELDS)))()
-    for k, (name, ndim) in enumerate(GRAD_FIELDS):
-        g = grads.get(name)
-        if g is None:
-            continue
-        if g.device != dev or g.dtype != torch.float32 or g.dim() != ndim or g.shape[0] != P:
-            raise ValueError(f"the gradient of {name} must be a {ndim}-d float32 tensor of {P} "
-                             f"rows on {dev}; got {g.dtype} {tuple(g.shape)} on {g.device}")
-        ptrs[k] = g.data_ptr()
-        strides[3 * k:3 * k + ndim] = g.stride()
-    return ptrs, strides
+    return build.entry("preprocess_bwd", 19, 9, 2)
 
 
 def launch_backward(entry, state, camera, kernel_size: float, scaling_modifier: float,
-                    grads: dict, stream=None) -> GaussianParams:
+                    grad, stream=None) -> GaussianParams:
     """One call of the backward's C entry ``entry`` (the kernel's, or a host
     build of the same source): the gradients of the state's six parameter
-    tensors from ``grads`` ({field: incoming gradient or None}) at the view
-    of ``camera``. The checks of ``preprocess_forward`` on the inputs; the
+    tensors from ``grad``, the table's incoming gradient ((P, N_FEAT)
+    float32, any row stride; None reads as zero), at the view of
+    ``camera``. The checks of ``preprocess_forward`` on the inputs; the
     caller checks the device."""
-    p = state.params
-    dev = p.xyz.device
-    D = state.max_sh_degree
-    if not 0 <= D <= MAX_SH_DEGREE:
-        raise ValueError(f"the preprocess kernel takes SH degrees 0-{MAX_SH_DEGREE}, not {D}")
-    P = state.capacity
-    f32 = torch.float32
-    rows = [("xyz", p.xyz, f32, (P, 3)), ("f_dc", p.f_dc, f32, (P, 1, 3)),
-            ("f_rest", p.f_rest, f32, (P, (D + 1) ** 2 - 1, 3)),
-            ("scaling", p.scaling, f32, (P, 3)), ("rotation", p.rotation, f32, (P, 4)),
-            ("opacity", p.opacity, f32, (P, 1)), ("filter_3d", state.filter_3d, f32, (P, 1)),
-            ("active", state.active, torch.bool, (P,)), ("camera.fovx", camera.fovx, f32, ()),
-            ("camera.fovy", camera.fovy, f32, ())]
-    for name, x, dtype, shape in rows:
-        build.check_tensor(name, x, dtype, shape, dev)
-    for name in ("f_rest", "rotation"):  # read as 16-byte words
-        if getattr(p, name).data_ptr() % 16:
-            raise ValueError(f"preprocess kernel: {name} must be 16-byte aligned")
-    for name, x, shape in (("camera.R", camera.R, (3, 3)), ("camera.T", camera.T, (3,))):
-        if x.device != dev or x.dtype != f32 or tuple(x.shape) != shape:
-            raise ValueError(f"kernel input {name} must be a {f32} tensor of shape {shape} on "
-                             f"{dev}; got {x.dtype} {tuple(x.shape)} on {x.device}")
-    ptrs, strides = _cotangents(grads, P, dev)
-    out = p.map(torch.empty_like)
-    rc = entry(*(x.data_ptr() for _, x, _, _ in rows[:8]), camera.R.data_ptr(),
-               camera.T.data_ptr(), camera.fovx.data_ptr(), camera.fovy.data_ptr(),
-               ctypes.addressof(ptrs), ctypes.addressof(strides),
-               *(t.data_ptr() for _, t in out.items()), *camera.R.stride(), camera.T.stride(0),
-               P, camera.width, camera.height, D, state.active_sh_degree, float(kernel_size),
-               float(scaling_modifier), stream)
+    ptrs, strides = _kernel_args(state, camera)
+    dev, P = state.params.xyz.device, state.capacity
+    if grad is not None:
+        if grad.device != dev or grad.dtype != torch.float32 or tuple(grad.shape) != (P, N_FEAT):
+            raise ValueError(f"the table's gradient must be a float32 tensor of shape "
+                             f"{(P, N_FEAT)} on {dev}; got {grad.dtype} {tuple(grad.shape)} "
+                             f"on {grad.device}")
+        if grad.stride(1) != 1:  # the kernel reads a row's columns together
+            grad = grad.contiguous()
+    out = state.params.map(torch.empty_like)
+    rc = entry(*ptrs, None if grad is None else grad.data_ptr(),
+               *(t.data_ptr() for _, t in out.items()), 0 if grad is None else grad.stride(0),
+               *strides, P, camera.width, camera.height, state.max_sh_degree,
+               state.active_sh_degree, float(kernel_size), float(scaling_modifier), stream)
     if rc != 0:
         raise RuntimeError(f"preprocess_bwd kernel launch failed with CUDA error {rc}")
     return out
 
 
 def preprocess_backward(state, camera, kernel_size: float, scaling_modifier: float,
-                        grads: dict) -> GaussianParams:
+                        grad) -> GaussianParams:
     """The gradients of the state's six parameter tensors, from one launch of
     the backward kernel over the state's rows (CUDA tensors only; it raises
-    otherwise, and on a failed launch): ``grads`` maps each field of
-    ``GRAD_FIELDS`` to its incoming gradient, any strides, or None."""
+    otherwise, and on a failed launch): ``grad`` is the table's incoming
+    gradient, at any row stride, or None."""
     dev = state.params.xyz.device
     if dev.type != "cuda":
         raise ValueError(f"the preprocess kernel runs on cuda tensors, not {dev}")
     with on_device(dev):
-        out = launch_backward(_bwd_entry(), state, camera, kernel_size, scaling_modifier, grads,
+        out = launch_backward(_bwd_entry(), state, camera, kernel_size, scaling_modifier, grad,
                               torch.cuda.current_stream().cuda_stream)
     trace.count("launches.preprocess", f"preprocess_bwd[sh={state.max_sh_degree}]")
     return out
@@ -251,11 +190,9 @@ def preprocess_backward(state, camera, kernel_size: float, scaling_modifier: flo
 
 class PreprocessFunction(torch.autograd.Function):
     """The kernel pair between the state's six parameter tensors and the
-    fields of ``PreprocessOut``: forward ``preprocess_forward`` (its
-    differentiable fields are views of the kernel's table), backward
+    per-Gaussian table: forward ``preprocess_forward``, backward
     ``preprocess_backward``, which recomputes what it needs from the
-    parameters; autograd hands it each field's gradient as it is, None for
-    a field with none."""
+    parameters; autograd hands it the table's gradient as it is."""
 
     @staticmethod
     def forward(ctx, state, camera, kernel_size, scaling_modifier, *params):
@@ -264,15 +201,13 @@ class PreprocessFunction(torch.autograd.Function):
         ctx.save_for_backward(*params)
         ctx.view = (state, camera, kernel_size, scaling_modifier)
         ctx.mark_non_differentiable(out.radius, out.valid, out.well_conditioned)
-        return tuple(getattr(out, f) for f, _ in GRAD_FIELDS) + (
-            out.radius, out.valid, out.well_conditioned)
+        return out.table, out.radius, out.valid, out.well_conditioned
 
     @staticmethod
-    def backward(ctx, *grads):
+    def backward(ctx, g_table, *_):
         state, camera, kernel_size, scaling_modifier = ctx.view
         state = state.replace(params=GaussianParams(*ctx.saved_tensors))
-        out = preprocess_backward(state, camera, kernel_size, scaling_modifier,
-                                  {f: g for (f, _), g in zip(GRAD_FIELDS, grads)})
+        out = preprocess_backward(state, camera, kernel_size, scaling_modifier, g_table)
         return (None, None, None, None, *(t for _, t in out.items()))
 
 
@@ -284,7 +219,7 @@ def preprocess_train(state, camera, kernel_size: float = 0.0, scaling_modifier: 
     it raises."""
     if compute_invraycov:
         raise ValueError("the preprocess backward kernel has no inverse ray-space covariance")
-    outs = PreprocessFunction.apply(state, camera, float(kernel_size), float(scaling_modifier),
-                                    *(t for _, t in state.params.items()))
-    f = dict(zip([n for n, _ in GRAD_FIELDS] + ["radius", "valid", "well_conditioned"], outs))
-    return PreprocessOut(**f)
+    table, radius, valid, well = PreprocessFunction.apply(
+        state, camera, float(kernel_size), float(scaling_modifier),
+        *(t for _, t in state.params.items()))
+    return PreprocessOut(table, valid, radius, well)

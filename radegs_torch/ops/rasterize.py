@@ -8,9 +8,11 @@ background compositing, normal normalisation) in plain PyTorch, so autograd
 supplies the corrections backward.cu:737-779 derives by hand.
 
 As in the JAX package's custom VJP, the Function's boundary is drawn around
-the raw accumulators only; ``med_pos`` is not differentiable, and the
-gradient of the dummy input ``xy_abs`` is the GOF densification side
-channel (rasterize.py:457-497).
+the raw accumulators only; ``med_pos`` is not differentiable. Its inputs
+are the preprocess's per-Gaussian table as it stands and two zero side
+channels: the gradient of ``xy_abs`` is the GOF densification statistic
+(rasterize.py:457-497), that of ``xy_offset`` the screen-space mean
+gradient (the table's xy gradient).
 
 Band mode (``render_width``, ``render_height``, ``band_row0``) renders one
 horizontal band of the image, as the multi-rank step does
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from radegs_torch.core.projection import PreprocessOut
+from radegs_torch.core.projection import PreprocessOut, column
 from radegs_torch.ops.binning import (
     TILE,
     TileBinning,
@@ -31,6 +33,7 @@ from radegs_torch.ops.binning import (
     tile_grid,
 )
 from radegs_torch.ops.blend import (
+    XY_ABS,
     blend_backward,
     blend_forward_packed,
     tile_pixel_coords,
@@ -50,42 +53,38 @@ def untile(x, width: int, height: int):
     return img.reshape(C, tiles_y * TILE, tiles_x * TILE)[:, :height, :width]
 
 
-def blend_inputs(prep: PreprocessOut):
-    """The per-Gaussian blend inputs; culled Gaussians get opacity 0."""
-    return (prep.xy, prep.conic, torch.where(prep.valid, prep.opacity, 0.0), prep.rgb,
-            prep.view_point, prep.camera_plane, prep.ray_plane, prep.normal, prep.ts)
-
-
 def bin_prep(prep: PreprocessOut, width: int, height: int, instance_budget: int,
              max_per_tile: int, need_tile_gauss: bool) -> TileBinning:
     """``bin_gaussians`` over a preprocess result, with the exact work cuts,
     on detached inputs (the JAX package's stop_gradients, rasterize.py:567-583)."""
+    table = prep.table.detach()
     return bin_gaussians(
-        prep.xy.detach(), prep.radius.detach(), prep.depth.detach(), prep.valid,
+        column(table, "xy"), prep.radius.detach(), column(table, "depth"), prep.valid,
         width, height, instance_budget=instance_budget, max_per_tile=max_per_tile,
-        conic=prep.conic.detach(),
-        opacity=torch.where(prep.valid, prep.opacity.detach(), 0.0),
+        conic=column(table, "conic"), opacity=column(table, "opacity"),
         need_tile_gauss=need_tile_gauss,
     )
 
 
 class BlendFunction(torch.autograd.Function):
-    """The blend between the nine per-Gaussian inputs (plus the dummy
-    ``xy_abs``) and the packed raw outputs (T, 17, 256) and ``med_pos``.
-    ``events`` (a list or None) is carried to the backward, which marks
-    "tail_backward" on entry (autograd has then run the backward of
-    everything after the blend) and passes it to ``blend_backward``."""
+    """The blend between the per-Gaussian table (plus the zero side channels
+    ``xy_abs`` and ``xy_offset``, each (P, 2) or None) and the packed raw
+    outputs (T, 17, 256) and ``med_pos``. The backward's gradient buffer
+    (``blend_backward``) hands out views: the table's, xy_abs's and, for
+    xy_offset, the table's xy columns. ``events`` (a list or None) is
+    carried to the backward, which marks "tail_backward" on entry (autograd
+    has then run the backward of everything after the blend) and passes it
+    to ``blend_backward``."""
 
     @staticmethod
-    def forward(ctx, binning, width, height, tiles_per_block, ndc_size, events, xy, xy_abs,
-                conic, opacity, rgb, view_point, camera_plane, ray_plane, normal, ts):
-        inputs = (xy, conic, opacity, rgb, view_point, camera_plane, ray_plane, normal, ts)
-        out, med_pos = blend_forward_packed(binning, inputs, width, height, tiles_per_block,
+    def forward(ctx, binning, width, height, tiles_per_block, ndc_size, events, table, xy_abs,
+                xy_offset):
+        out, med_pos = blend_forward_packed(binning, table, width, height, tiles_per_block,
                                             events=events)
         ctx.binning = binning
         ctx.events = events
         ctx.geometry = (width, height, tiles_per_block, ndc_size)
-        ctx.save_for_backward(*inputs, out, med_pos)
+        ctx.save_for_backward(table, out, med_pos)
         ctx.mark_non_differentiable(med_pos)
         return out, med_pos
 
@@ -93,15 +92,15 @@ class BlendFunction(torch.autograd.Function):
     def backward(ctx, g_out, _g_med_pos):
         # absent cotangents arrive as zeros (materialised by autograd)
         mark(ctx.events, "tail_backward")
-        *inputs, out, med_pos = ctx.saved_tensors
+        table, out, med_pos = ctx.saved_tensors
         width, height, tiles_per_block, ndc_size = ctx.geometry
         with trace.span("blend_bwd"):
-            grads = blend_backward(ctx.binning, tuple(inputs), unpack_raw(out, med_pos),
-                                   unpack_raw(g_out, None), width, height, tiles_per_block,
-                                   ndc_size=ndc_size, events=ctx.events)
-        return (None, None, None, None, None, None, grads["xy"], grads["xy_abs"],
-                grads["conic"], grads["opacity"], grads["rgb"], grads["view_point"],
-                grads["camera_plane"], grads["ray_plane"], grads["normal"], grads["ts"])
+            grad = blend_backward(ctx.binning, table, unpack_raw(out, med_pos),
+                                  unpack_raw(g_out, None), width, height, tiles_per_block,
+                                  ndc_size=ndc_size, events=ctx.events)
+        need = ctx.needs_input_grad
+        return (None, None, None, None, None, None, grad[:, :XY_ABS] if need[6] else None,
+                grad[:, XY_ABS:] if need[7] else None, grad[:, 0:2] if need[8] else None)
 
 
 def normalize(raw, camera, bg, width: int | None = None, height: int | None = None,
@@ -152,6 +151,7 @@ def rasterize(
     instance_budget: int | None = None,
     tiles_per_block: int = 2,
     xy_abs=None,
+    xy_offset=None,
     events: list | None = None,
     render_width: int | None = None,
     render_height: int | None = None,
@@ -162,33 +162,29 @@ def rasterize(
     ``radii``, ``visibility_filter`` and the ``binning`` diagnostics.
 
     ``tiles_per_block``: tiles per CUDA block of the blend kernels (1 or 2).
-    ``xy_abs``: optional (P, 2) zeros; its gradient is the GOF absolute
-    screen-gradient densification statistic.
+    ``xy_abs`` / ``xy_offset``: optional (P, 2) zeros; their gradients are
+    the GOF absolute screen-gradient densification statistic and the
+    screen-space mean gradient (``prep.xy``'s).
     ``events``: a list that receives (stage, torch.cuda.Event) after the
     binning, blend and normalisation stages (CUDA only), for stage timing,
     and the blend wrappers' marks: forward and backward (``BlendFunction``).
     ``render_width`` / ``render_height`` / ``band_row0``: render only the
-    band of global rows ``band_row0 ..`` (rasterize.py:529-539); ``prep.xy``
-    must already be shifted to band-local rows (y - band_row0). The camera
+    band of global rows ``band_row0 ..`` (rasterize.py:529-539); the table's
+    xy must already be shifted to band-local rows (y - band_row0). The camera
     keeps the full image: ``ln`` uses global rows, and the GOF statistic's
     NDC scale the full image size."""
     W, H = render_width or camera.width, render_height or camera.height
-    on_cpu = prep.xy.device.type == "cpu"
+    on_cpu = prep.table.device.type == "cpu"
 
     if binning is None:
         if instance_budget is None:
-            instance_budget = default_instance_budget(prep.xy.shape[0])
+            instance_budget = default_instance_budget(prep.table.shape[0])
         binning = bin_prep(prep, W, H, instance_budget, max_per_tile,
                            need_tile_gauss=on_cpu)
     mark(events, "binning")
-    if xy_abs is None:
-        xy_abs = torch.zeros_like(prep.xy)
-    xy, conic, opacity, rgb, view_point, camera_plane, ray_plane, normal, ts = \
-        blend_inputs(prep)
     out, med_pos = BlendFunction.apply(binning, W, H, tiles_per_block,
-                                       (camera.width, camera.height), events, xy, xy_abs,
-                                       conic, opacity, rgb, view_point, camera_plane,
-                                       ray_plane, normal, ts)
+                                       (camera.width, camera.height), events, prep.table, xy_abs,
+                                       xy_offset)
     raw = unpack_raw(out, med_pos)
     mark(events, "blend")
     with trace.span("normalize"):

@@ -8,8 +8,9 @@ and its horizontal band of the image:
    with no communication.
 2. The frustum-visible, on-screen Gaussians are compacted into ``V``
    static slots (overflow counted in ``n_vis_overflow``, never dropped
-   silently) and only those rows are gathered from every rank: 30 float
-   columns a row, one ``all_gather``.
+   silently) and only those rows are gathered from every rank: the row of
+   the per-Gaussian table and its side columns, 31 floats, one
+   ``all_gather``.
 3. Every rank bins and blends its own band of tile rows (``rasterize`` in
    band mode), through the same blend kernels as the single-rank path.
 4. The losses are taken band by band: L1 locally, SSIM with a 5-row halo
@@ -34,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from radegs_torch.core.geometry import depths_to_points, points_to_normal
-from radegs_torch.core.projection import PreprocessOut
+from radegs_torch.core.projection import COLUMNS, N_FEAT, PreprocessOut
 from radegs_torch.models import gaussian_model as gm
 from radegs_torch.models.appearance import AppearanceNetwork, appearance_transform
 from radegs_torch.ops.binning import TILE, default_instance_budget
@@ -44,14 +45,12 @@ from radegs_torch.parallel.comm import Mesh1D, all_gather_rows, all_reduce, pmax
 from radegs_torch.renderer import prepare
 from radegs_torch.train.optim import GroupLRs, adam_step, appearance_adam, expon_lr
 
-# the gathered per-Gaussian columns, in row order, and their widths
-ROW_FIELDS = (("xy", 2), ("depth", 1), ("view_point", 3), ("conic", 3), ("opacity", 1),
-              ("rgb", 3), ("camera_plane", 6), ("ray_plane", 2), ("normal", 3), ("ts", 1),
-              ("radius", 1), ("valid", 1), ("well_conditioned", 1), ("xy_abs", 2))
-ROW_WIDTH = sum(w for _, w in ROW_FIELDS)
-# the columns an empty slot zeroes: it must neither bin nor blend
-MASKED = torch.tensor([name in ("opacity", "radius", "valid")
-                       for name, w in ROW_FIELDS for _ in range(w)])
+# a gathered row: the table's N_FEAT columns, then these side columns
+RADIUS, VALID, WELL, XY_ABS, XY_OFFSET = (N_FEAT + k for k in (0, 1, 2, 3, 5))
+ROW_WIDTH = N_FEAT + 7
+# the columns an empty slot zeroes (opacity, radius, valid): it must neither
+# bin nor blend
+MASKED = torch.isin(torch.arange(ROW_WIDTH), torch.tensor([COLUMNS["opacity"], RADIUS, VALID]))
 # the step's metrics: summed over ranks, then the worst rank's visible count
 SUMMED = ("loss", "l1", "depth_normal_loss", "mse", "n_vis_overflow", "n_overflow",
           "tile_overflow", "n_instances", "n_vis")
@@ -91,7 +90,7 @@ def compact(vis, V: int):
     return idx[:V]
 
 
-def _pack_rows(prep: PreprocessOut, xy_abs, idx, masked):
+def _pack_rows(prep: PreprocessOut, xy_abs, xy_offset, idx, masked):
     """The (V, ROW_WIDTH) rows of the compacted Gaussians ``idx`` (the
     rank's capacity marks an empty slot), gathered at once; empty slots get
     0 in the ``masked`` columns (opacity, radius, ``valid``). An empty slot
@@ -99,8 +98,8 @@ def _pack_rows(prep: PreprocessOut, xy_abs, idx, masked):
     row: the gather's backward adds the (zero) cotangents of a repeated
     index one after another."""
     cn = xy_abs.shape[0]
-    full = torch.cat([(xy_abs if name == "xy_abs" else getattr(prep, name))
-                      .reshape(cn, w).to(torch.float32) for name, w in ROW_FIELDS], dim=1)
+    full = torch.cat([prep.table, prep.radius[:, None], prep.valid[:, None].float(),
+                      prep.well_conditioned[:, None].float(), xy_abs, xy_offset], dim=1)
     used = idx < cn
     spread = torch.arange(idx.shape[0], device=idx.device) % cn
     rows = full[torch.where(used, idx, spread)]
@@ -108,19 +107,13 @@ def _pack_rows(prep: PreprocessOut, xy_abs, idx, masked):
 
 
 def _unpack_rows(rows, y0: int):
-    """Gathered rows -> (PreprocessOut with band-local xy, xy_abs)."""
-    f, a = {}, 0
-    for name, w in ROW_FIELDS:
-        f[name] = rows[:, a:a + w]
-        a += w
-    xy = torch.stack([f["xy"][:, 0], f["xy"][:, 1] - float(y0)], dim=1)
-    prep = PreprocessOut(
-        valid=f["valid"][:, 0] > 0.5, xy=xy, depth=f["depth"][:, 0],
-        view_point=f["view_point"], conic=f["conic"], opacity=f["opacity"][:, 0],
-        rgb=f["rgb"], camera_plane=f["camera_plane"].reshape(-1, 3, 2),
-        ray_plane=f["ray_plane"], normal=f["normal"], ts=f["ts"][:, 0],
-        radius=f["radius"][:, 0], well_conditioned=f["well_conditioned"][:, 0] > 0.5)
-    return prep, f["xy_abs"]
+    """Gathered rows -> (PreprocessOut with band-local xy, xy_abs,
+    xy_offset): the table's y column shifted by the band's first row."""
+    shift = torch.zeros(N_FEAT, device=rows.device)
+    shift[1] = float(y0)
+    prep = PreprocessOut(rows[:, :N_FEAT] - shift, rows[:, VALID] > 0.5, rows[:, RADIUS],
+                         rows[:, WELL] > 0.5)
+    return prep, rows[:, XY_ABS:XY_ABS + 2], rows[:, XY_OFFSET:XY_OFFSET + 2]
 
 
 def make_sharded_train_step(mcfg, ocfg, pcfg, spatial_lr_scale: float, mesh: Mesh1D,
@@ -172,20 +165,20 @@ def make_sharded_train_step(mcfg, ocfg, pcfg, spatial_lr_scale: float, mesh: Mes
         xy_abs = torch.zeros((cn, 2), device=dev, requires_grad=True)
 
         prep = prepare(g.replace(params=params), camera, mcfg.kernel_size)
-        prep = prep.replace(xy=prep.xy + xy_offset)
         # the visibility compaction: valid (z > near) is not enough, a
         # Gaussian off the whole image would ride the gather for nothing
         x, y, rad = prep.xy[:, 0].detach(), prep.xy[:, 1].detach(), prep.radius.detach()
         on_screen = (x + rad > 0) & (x - rad < width) & (y + rad > 0) & (y - rad < height)
         vis = prep.valid & (rad > 0) & on_screen
         n_vis = vis.sum()
-        rows = all_gather_rows(_pack_rows(prep, xy_abs, compact(vis, V), masked), mesh)
-        prep_all, xy_abs_all = _unpack_rows(rows, y0)
+        rows = all_gather_rows(_pack_rows(prep, xy_abs, xy_offset, compact(vis, V), masked),
+                               mesh)
+        prep_all, xy_abs_all, xy_offset_all = _unpack_rows(rows, y0)
 
         out = rasterize(prep_all, camera, bg, max_per_tile=pcfg.max_per_tile,
                         instance_budget=budget, tiles_per_block=pcfg.tiles_per_block,
-                        xy_abs=xy_abs_all, render_width=width, render_height=band_px,
-                        band_row0=y0)
+                        xy_abs=xy_abs_all, xy_offset=xy_offset_all, render_width=width,
+                        render_height=band_px, band_row0=y0)
         img = out["render"] * row_ok
         gt_m = gt_padded[:, y0:y0 + band_px] * row_ok
 

@@ -103,10 +103,10 @@ def render(
     degree. ``bg`` is a (3,) background colour. Differentiable w.r.t. the
     state's parameters.
 
-    ``xy_offset``/``xy_abs``: optional (C, 2) zero tensors; their gradients
-    are the screen-space mean gradients (pixel units) and the GOF absolute
-    gradient statistic — the reference's means2D .grad side channel
-    (gaussian_renderer/__init__.py:29-33).
+    ``xy_offset``/``xy_abs``: optional (C, 2) zero tensors, side inputs of
+    the blend; their gradients are the screen-space mean gradients (pixel
+    units) and the GOF absolute gradient statistic — the reference's
+    means2D .grad side channel (gaussian_renderer/__init__.py:29-33).
 
     ``events``: a list that receives (stage, torch.cuda.Event) after the
     preprocess, binning, blend and normalisation stages (CUDA only); given,
@@ -127,8 +127,6 @@ def render(
         mark(events, "start")
         with trace.span("preprocess"):
             prep = prepare(state, camera, kernel_size, scaling_modifier)
-            if xy_offset is not None:
-                prep = prep.replace(xy=prep.xy + xy_offset)
             mark(events, "preprocess")
         grow = instance_budget is None
         budget = default_instance_budget(state.capacity) if grow else instance_budget
@@ -136,7 +134,7 @@ def render(
             trace.count("render", "pass")
             out = rasterize(prep, camera, bg, max_per_tile=max_per_tile,
                             instance_budget=budget, tiles_per_block=tiles_per_block,
-                            xy_abs=xy_abs, events=events)
+                            xy_abs=xy_abs, xy_offset=xy_offset, events=events)
             if not grow:
                 return out
             n_ovf, t_ovf, need_budget, need_tile = _grown(out["binning"], budget, max_per_tile,
@@ -194,7 +192,7 @@ def integrate_prepare(state: GaussianState, camera, bg, kernel_size: float = 0.0
 def integrate_points(points3d, prep, cache, camera):
     """Phase B against a prepared cache (``integrate_prepare``): the dict of
     ``integrate`` without ``binning``. ``points3d`` (N, 3) array or tensor."""
-    camera = camera if camera.device == prep.xy.device else camera.to(prep.xy.device)
+    camera = camera if camera.device == prep.table.device else camera.to(prep.table.device)
     return integrate_op.integrate_points_cached(points3d, prep, cache, camera)
 
 

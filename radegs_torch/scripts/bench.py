@@ -144,23 +144,26 @@ def kernel_parity_check(device=None):
     backwards take the kernel's forward output. Returns the largest
     ``parity_error``. Raises on a CPU device: there the wrappers run the
     plain versions, and there is no kernel to hold."""
+    from radegs_torch.core.projection import COLUMNS, column
     from radegs_torch.ops import blend
-    from radegs_torch.ops.rasterize import blend_inputs
     from radegs_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"the kernel parity check needs a CUDA device, not {dev}")
     prep, binning, W, H = parity_inputs(dev)
-    inputs = blend_inputs(prep)
-    fwd_ref = blend.blend_forward_torch(binning.tile_gauss, inputs, W, H)
+
+    def fields(grad):  # the gradient buffer per field, as the JAX check holds it
+        return {**{f: column(grad, f) for f in COLUMNS}, "xy_abs": grad[:, blend.XY_ABS:]}
+
+    fwd_ref = blend.blend_forward_torch(binning.tile_gauss, prep.table, W, H)
     worst = 0.0
     for g in (1, 2):
-        fwd = blend.blend_forward(binning, inputs, W, H, tiles_per_block=g)
+        fwd = blend.blend_forward(binning, prep.table, W, H, tiles_per_block=g)
         cot = {k: torch.ones_like(fwd[k]) for k in blend.DIFF_KEYS}
-        grads = blend.blend_backward(binning, inputs, fwd, cot, W, H, tiles_per_block=g)
-        grads_ref = blend.blend_backward_torch(binning.tile_gauss, inputs, fwd, cot, W, H)
-        worst = max(worst, parity_error(fwd, fwd_ref, grads, grads_ref))
+        grads = blend.blend_backward(binning, prep.table, fwd, cot, W, H, tiles_per_block=g)
+        grads_ref = blend.blend_backward_torch(binning.tile_gauss, prep.table, fwd, cot, W, H)
+        worst = max(worst, parity_error(fwd, fwd_ref, fields(grads), fields(grads_ref)))
     return worst
 
 

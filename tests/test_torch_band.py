@@ -54,8 +54,8 @@ def t_prep(prep, row0, grad=False):
     leaves["xy"] = leaves["xy"] - torch.tensor([0.0, float(row0)])
     if grad:
         leaves = {f: v.requires_grad_(True) for f, v in leaves.items()}
-    return PreprocessOut(valid=t(prep.valid), depth=t(prep.depth), radius=t(prep.radius),
-                         well_conditioned=t(prep.well_conditioned), **leaves), leaves
+    return PreprocessOut.from_fields(t(prep.valid), t(prep.radius), t(prep.well_conditioned),
+                                     **leaves), leaves
 
 
 def band_kw(row0, rows):

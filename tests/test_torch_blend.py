@@ -18,11 +18,19 @@ from radegs_tpu.ops.binning import bin_gaussians as j_bin
 from radegs_tpu.ops.pallas_blend import blend_forward_pallas
 from radegs_tpu.ops.pallas_blend_mt import blend_forward_pallas_mt
 from radegs_tpu.ops.rasterize import RasterCfg, _blend_forward_scan
+from radegs_torch.core.projection import pack_table
 from radegs_torch.ops import blend
 from radegs_torch.ops.binning import bin_gaussians as t_bin
 
 torch.set_num_threads(1)
 W, H = 72, 50  # not a multiple of 16: the ragged tiles are blended too
+
+
+def table_of(inputs):
+    """The nine blend inputs as the port's per-Gaussian table."""
+    xy, conic, opacity, rgb, view_point, camera_plane, ray_plane, normal, ts = inputs
+    return pack_table(xy=xy, conic=conic, opacity=opacity, rgb=rgb, ts=ts, ray_plane=ray_plane,
+                      view_point=view_point, camera_plane=camera_plane, normal=normal)
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +55,7 @@ def scene():
                     opacity=j_inputs[2])
     t_inputs = tuple(torch.from_numpy(np.array(x)) for x in j_inputs)
     port = blend.blend_forward_torch(torch.from_numpy(np.array(binning.tile_gauss)),
-                                     t_inputs, W, H, count_work=True)
+                                     table_of(t_inputs), W, H, count_work=True)
     return prep, binning, j_inputs, t_inputs, port
 
 
@@ -86,12 +94,12 @@ def test_blend_forward_on_cpu_runs_the_plain_version(scene):
                instance_budget=1 << 11, max_per_tile=128, conic=t_inputs[1],
                opacity=t_inputs[2], need_tile_gauss=True)
     before = dict(blend.LAUNCHES)
-    out = blend.blend_forward(tb, t_inputs, W, H)
+    out = blend.blend_forward(tb, table_of(t_inputs), W, H)
     assert blend.LAUNCHES == before  # no kernel launch counted on the CPU
     for k, v in out.items():
         assert torch.equal(v, port[k]), k
     with pytest.raises(ValueError, match="tile_gauss"):
-        blend.blend_forward(tb._replace(tile_gauss=None), t_inputs, W, H)
+        blend.blend_forward(tb._replace(tile_gauss=None), table_of(t_inputs), W, H)
 
 
 @pytest.mark.cuda
@@ -106,8 +114,8 @@ def test_kernel_matches_plain_on_card(scene, tiles_per_block):
                  (prep.xy, prep.radius, prep.depth, prep.valid)), W, H,
                instance_budget=1 << 11, max_per_tile=128, conic=inputs[1],
                opacity=inputs[2], need_tile_gauss=True)
-    plain = blend.blend_forward_torch(tb.tile_gauss, inputs, W, H)
-    out = blend.blend_forward(tb, inputs, W, H, tiles_per_block=tiles_per_block)
+    plain = blend.blend_forward_torch(tb.tile_gauss, table_of(inputs), W, H)
+    out = blend.blend_forward(tb, table_of(inputs), W, H, tiles_per_block=tiles_per_block)
     torch.cuda.synchronize()
     for k, v in plain.items():
         if k == "med_pos":

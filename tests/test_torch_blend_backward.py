@@ -24,6 +24,7 @@ from radegs_tpu.ops.binning import bin_gaussians as j_bin
 from radegs_tpu.ops.pallas_blend import blend_backward_pallas
 from radegs_tpu.ops.pallas_blend_mt import blend_backward_pallas_mt
 from radegs_tpu.ops.rasterize import RasterCfg, _blend_backward_scan, _blend_forward_scan
+from radegs_torch.core.projection import COLUMNS, column, pack_table
 from radegs_torch.ops import blend
 from radegs_torch.ops.binning import bin_gaussians as t_bin
 
@@ -39,6 +40,19 @@ def rel_err(a, b):
     a, b = np.asarray(a), np.asarray(b)
     assert a.shape == b.shape
     return np.abs(a - b).max() / max(np.abs(a).max(), 1e-30)
+
+
+def table_of(inputs):
+    """The nine blend inputs as the port's per-Gaussian table."""
+    xy, conic, opacity, rgb, view_point, camera_plane, ray_plane, normal, ts = inputs
+    return pack_table(xy=xy, conic=conic, opacity=opacity, rgb=rgb, ts=ts, ray_plane=ray_plane,
+                      view_point=view_point, camera_plane=camera_plane, normal=normal)
+
+
+def fields_of(grad):
+    """The gradient buffer as per-field views: the table's fields, xy_abs
+    (P, 2)."""
+    return {**{f: column(grad, f) for f in COLUMNS}, "xy_abs": grad[:, blend.XY_ABS:]}
 
 
 @pytest.fixture(scope="module")
@@ -69,9 +83,10 @@ def scene():
     t_fwd = {k: torch.from_numpy(np.array(v)) for k, v in fwd.items()}
     t_cot = {k: torch.from_numpy(np.array(v)) for k, v in j_cot.items()}
     tile_gauss = torch.from_numpy(np.array(binning.tile_gauss))
-    port = blend.blend_backward_torch(tile_gauss, t_inputs, t_fwd, t_cot, W, H)
+    buf = blend.blend_backward_torch(tile_gauss, table_of(t_inputs), t_fwd, t_cot, W, H)
     return dict(prep=prep, binning=binning, j_inputs=j_inputs, fwd=fwd, j_cot=j_cot,
-                t_inputs=t_inputs, t_fwd=t_fwd, t_cot=t_cot, tile_gauss=tile_gauss, port=port)
+                t_inputs=t_inputs, t_fwd=t_fwd, t_cot=t_cot, tile_gauss=tile_gauss,
+                port=fields_of(buf), buf=buf)
 
 
 def test_scene_exercises_every_branch(scene):
@@ -102,13 +117,31 @@ def test_plain_backward_matches_autograd(scene):
     """torch.autograd through the plain forward gives the exact gradient of
     the same sequential computation (everything but the xy_abs side channel)."""
     inputs = tuple(x.clone().requires_grad_(True) for x in scene["t_inputs"])
-    out = blend.blend_forward_torch(scene["tile_gauss"], inputs, W, H)
+    out = blend.blend_forward_torch(scene["tile_gauss"], table_of(inputs), W, H)
     loss = sum((out[k] * scene["t_cot"][k]).sum() for k in blend.DIFF_KEYS)
     loss.backward()
     names = ["xy", "conic", "opacity", "rgb", "view_point", "camera_plane", "ray_plane",
              "normal", "ts"]
     for name, x in zip(names, inputs):
         assert rel_err(x.grad.numpy(), scene["port"][name].numpy()) <= REL, name
+
+
+def test_plain_backward_buffer_is_the_table_gradient(scene):
+    """The plain backward's (P, GRAD_COLS) buffer is autograd's gradient of
+    the packed table through the plain forward, in the table's column order,
+    with xy_abs after it (the XLA scan's) and a zero column."""
+    table = table_of(scene["t_inputs"]).requires_grad_(True)
+    out = blend.blend_forward_torch(scene["tile_gauss"], table, W, H)
+    sum((out[k] * scene["t_cot"][k]).sum() for k in blend.DIFF_KEYS).backward()
+    buf = scene["buf"]
+    assert buf.shape == (table.shape[0], blend.GRAD_COLS) == (table.shape[0], 26)
+    for c in range(blend.XY_ABS):
+        assert rel_err(table.grad[:, c].numpy(), buf[:, c].numpy()) <= REL, c
+    ref = _blend_backward_scan(RasterCfg(width=W, height=H, chunk=16),
+                               scene["binning"].tile_gauss, scene["j_inputs"], scene["fwd"],
+                               scene["j_cot"])
+    assert rel_err(np.asarray(ref["xy_abs"])[:, 0], buf[:, blend.XY_ABS].numpy()) <= REL
+    assert (buf[:, blend.XY_ABS + 1] == 0).all()
 
 
 def test_blend_backward_on_cpu_runs_the_plain_version(scene):
@@ -120,12 +153,13 @@ def test_blend_backward_on_cpu_runs_the_plain_version(scene):
                opacity=t_inputs[2], need_tile_gauss=True)
     assert torch.equal(tb.tile_gauss, scene["tile_gauss"])
     before = dict(blend.LAUNCHES)
-    got = blend.blend_backward(tb, t_inputs, scene["t_fwd"], scene["t_cot"], W, H)
+    got = fields_of(blend.blend_backward(tb, table_of(t_inputs), scene["t_fwd"],
+                                         scene["t_cot"], W, H))
     assert blend.LAUNCHES == before  # no kernel launch counted on the CPU
     for k in GRADS:
         assert torch.equal(got[k], scene["port"][k]), k
     with pytest.raises(ValueError, match="tile_gauss"):
-        blend.blend_backward(tb._replace(tile_gauss=None), t_inputs, scene["t_fwd"],
+        blend.blend_backward(tb._replace(tile_gauss=None), table_of(t_inputs), scene["t_fwd"],
                              scene["t_cot"], W, H)
 
 
@@ -136,16 +170,16 @@ def test_kernel_matches_plain_on_card(scene):
     prep = scene["prep"]
     dev = torch.device("cuda")
     inputs = tuple(x.to(dev) for x in scene["t_inputs"])
+    table = table_of(inputs)
     tb = t_bin(*(torch.from_numpy(np.array(x)).to(dev) for x in
                  (prep.xy, prep.radius, prep.depth, prep.valid)), W, H,
                instance_budget=1 << 11, max_per_tile=MAX_PER_TILE, conic=inputs[1],
                opacity=inputs[2], need_tile_gauss=True)
-    fwd = blend.blend_forward(tb, inputs, W, H)
+    fwd = blend.blend_forward(tb, table, W, H)
     cot = {k: v.to(dev) for k, v in scene["t_cot"].items()}
-    plain = blend.blend_backward_torch(tb.tile_gauss, inputs, fwd, cot, W, H)
-    k1 = blend.blend_backward(tb, inputs, fwd, cot, W, H, tiles_per_block=1)
-    k2 = blend.blend_backward(tb, inputs, fwd, cot, W, H, tiles_per_block=2)
-    k2b = blend.blend_backward(tb, inputs, fwd, cot, W, H, tiles_per_block=2)
+    plain = fields_of(blend.blend_backward_torch(tb.tile_gauss, table, fwd, cot, W, H))
+    k1, k2, k2b = (fields_of(blend.blend_backward(tb, table, fwd, cot, W, H, tiles_per_block=g))
+                   for g in (1, 2, 2))
     torch.cuda.synchronize()
     for k in GRADS:
         assert torch.equal(k1[k], k2[k]) and torch.equal(k2[k], k2b[k]), k

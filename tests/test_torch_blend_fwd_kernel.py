@@ -40,11 +40,11 @@ import pytest
 import torch
 
 from radegs_torch.core.camera import Camera
-from radegs_torch.core.projection import preprocess_gaussians
+from radegs_torch.core.projection import column, preprocess_gaussians
 from radegs_torch.native import build
 from radegs_torch.ops import blend
 from radegs_torch.ops import integrate as ig
-from radegs_torch.ops.rasterize import bin_prep, blend_inputs
+from radegs_torch.ops.rasterize import bin_prep
 
 torch.set_num_threads(1)
 W, H = 72, 50
@@ -83,15 +83,15 @@ def scene(device):
                                 kernel_size=0.1)
     binning = bin_prep(prep, W, H, instance_budget=1 << 12, max_per_tile=MAX_PER_TILE,
                        need_tile_gauss=True)
-    return binning, blend_inputs(prep)
+    return binning, prep.table
 
 
-def pair_gates(binning, inputs):
+def pair_gates(binning, table):
     """Every (tile, contributor k, pixel) of the scene's ``tile_gauss``
     through the full gate in float32, as the plain walk computes it: ids
     (T, K), power and alpha (T, K, 256), the candidacy (power <= 0 and alpha
     >= 1/255) and the contributor's skip_below."""
-    xy, conic, opacity = inputs[0], inputs[1], inputs[2].reshape(-1)
+    xy, conic, opacity = (column(table, f) for f in ("xy", "conic", "opacity"))
     tg = binning.tile_gauss.to(torch.int64)
     ids = tg.clamp_min(0)
     pix_x, pix_y = blend.tile_pixel_coords(W, H, xy.device)
@@ -126,9 +126,9 @@ def direct_walk(binning, alpha, cand):
 
 
 def test_count_work_n_alpha_is_a_direct_count():
-    binning, inputs = scene("cpu")
-    work = blend.blend_forward_torch(binning.tile_gauss, inputs, W, H, count_work=True)
-    _, _, alpha, cand, _ = pair_gates(binning, inputs)
+    binning, table = scene("cpu")
+    work = blend.blend_forward_torch(binning.tile_gauss, table, W, H, count_work=True)
+    _, _, alpha, cand, _ = pair_gates(binning, table)
     walked, hit, blended = direct_walk(binning, alpha, cand)
     n_alpha, n_eval = int(hit.sum()), int(walked.sum())
     assert int(work["n_alpha"]) == n_alpha > 0
@@ -141,9 +141,9 @@ def test_count_work_row_and_column_counts_are_direct_counts():
     column), those of dy alone once per walked (contributor, tile row), the
     blend's dx halves once per (contributor, tile column) with a blended
     pixel (pixel i of a tile: row i // 16, column i % 16)."""
-    binning, inputs = scene("cpu")
-    work = blend.blend_forward_torch(binning.tile_gauss, inputs, W, H, count_work=True)
-    _, _, alpha, cand, _ = pair_gates(binning, inputs)
+    binning, table = scene("cpu")
+    work = blend.blend_forward_torch(binning.tile_gauss, table, W, H, count_work=True)
+    _, _, alpha, cand, _ = pair_gates(binning, table)
     walked, _, blended = direct_walk(binning, alpha, cand)
     T, K = walked.shape[:2]
     grid = walked.view(T, K, 16, 16)  # [tile, contributor, pixel row, pixel column]
@@ -156,15 +156,15 @@ def test_count_work_row_and_column_counts_are_direct_counts():
 
 
 def test_scene_exercises_every_branch():
-    binning, inputs = scene("cpu")
+    binning, table = scene("cpu")
     assert int(binning.n_overflow) == 0
     assert int(binning.tile_overflow) > 0  # the max_per_tile cut
     assert (binning.tile_count == 0).any()  # an empty tile
-    work = blend.blend_forward_torch(binning.tile_gauss, inputs, W, H, count_work=True)
+    work = blend.blend_forward_torch(binning.tile_gauss, table, W, H, count_work=True)
     assert int(work["n_alpha"] - work["n_incl"]) > 500  # pixels that end
     assert (work["med_pos"] >= 0).any()
     # every pixel of a tile with more than 32 rows (one round) ends in its first
-    _, _, alpha, cand, _ = pair_gates(binning, inputs)
+    _, _, alpha, cand, _ = pair_gates(binning, table)
     walked, _, _ = direct_walk(binning, alpha, cand)
     assert ((~walked[:, 32:].any(2)).all(1) & (binning.tile_count > 32)).any()
 
@@ -173,8 +173,8 @@ def test_scene_exercises_every_branch():
 
 
 def test_integrate_skip_below_spares_only_pairs_under_the_alpha_gate():
-    binning, inputs = scene("cpu")
-    tg, power, alpha, _, skip = pair_gates(binning, inputs)
+    binning, table = scene("cpu")
+    tg, power, alpha, _, skip = pair_gates(binning, table)
     spared = (tg >= 0)[..., None] & (power < skip[..., None])
     assert spared.sum() > 1000  # the scene's pairs mostly lie far out
     assert (alpha[spared] < blend.ALPHA_EPS).all()
@@ -210,8 +210,8 @@ def test_integrate_heaviest_first_is_a_stable_descending_permutation():
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the forward kernel has no CPU mode")
-    binning, inputs = scene("cuda")
-    return binning, inputs, blend.blend_forward_torch(binning.tile_gauss, inputs, W, H)
+    binning, table = scene("cuda")
+    return binning, table, blend.blend_forward_torch(binning.tile_gauss, table, W, H)
 
 
 @pytest.fixture(scope="module")
@@ -230,10 +230,10 @@ def copies():
 
 
 def check_kernel(card):
-    binning, inputs, plain = card
-    k1 = blend.blend_forward(binning, inputs, W, H, tiles_per_block=1)
-    k2 = blend.blend_forward(binning, inputs, W, H, tiles_per_block=2)
-    k2b = blend.blend_forward(binning, inputs, W, H, tiles_per_block=2)
+    binning, table, plain = card
+    k1 = blend.blend_forward(binning, table, W, H, tiles_per_block=1)
+    k2 = blend.blend_forward(binning, table, W, H, tiles_per_block=2)
+    k2b = blend.blend_forward(binning, table, W, H, tiles_per_block=2)
     torch.cuda.synchronize()
     for k, v in plain.items():
         assert torch.equal(k1[k], k2[k]) and torch.equal(k2[k], k2b[k]), k
@@ -262,12 +262,12 @@ def test_kernel_copy_matches_plain(card, copies, name, monkeypatch):
 
 @pytest.mark.cuda
 def test_entry_refuses_another_tiles_per_block(card):
-    binning, inputs, _ = card
-    feat, T, tiles_x = blend._kernel_inputs(binning, inputs, W, H, 2)
+    binning, table, _ = card
+    T, tiles_x = blend._kernel_inputs(binning, table, W, H, 2)
     out = torch.empty((T, blend.N_OUT, 256), device="cuda")
     med = torch.empty((T, 256), dtype=torch.int32, device="cuda")
     rc = blend._entry("blend_fwd")(
-        feat.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
+        table.data_ptr(), binning.gauss_id.data_ptr(), binning.tile_start.data_ptr(),
         binning.tile_count.data_ptr(), out.data_ptr(), med.data_ptr(), T, tiles_x, 3,
         torch.cuda.current_stream().cuda_stream)
     assert rc == 1  # cudaErrorInvalidValue

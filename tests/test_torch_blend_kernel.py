@@ -21,10 +21,10 @@ import pytest
 import torch
 
 from radegs_torch.core.camera import Camera
-from radegs_torch.core.projection import preprocess_gaussians
+from radegs_torch.core.projection import COLUMNS, column, preprocess_gaussians
 from radegs_torch.native import build
 from radegs_torch.ops import blend
-from radegs_torch.ops.rasterize import bin_prep, blend_inputs
+from radegs_torch.ops.rasterize import bin_prep
 
 torch.set_num_threads(1)
 W, H = 72, 50
@@ -55,11 +55,15 @@ def scene(device):
                                 kernel_size=0.1)
     binning = bin_prep(prep, W, H, instance_budget=1 << 12, max_per_tile=MAX_PER_TILE,
                        need_tile_gauss=True)
-    inputs = blend_inputs(prep)
-    fwd = blend.blend_forward(binning, inputs, W, H)
+    fwd = blend.blend_forward(binning, prep.table, W, H)
     rng = np.random.default_rng(5)
     cot = {k: t(rng.normal(size=tuple(fwd[k].shape))) for k in blend.DIFF_KEYS}
-    return binning, inputs, fwd, cot
+    return binning, prep.table, fwd, cot
+
+
+def fields_of(grad):
+    """The gradient buffer as per-field views: the table's fields, xy_abs."""
+    return {**{f: column(grad, f) for f in COLUMNS}, "xy_abs": grad[:, blend.XY_ABS:]}
 
 
 def rel_err(a, b):
@@ -79,9 +83,9 @@ def test_scene_exercises_every_branch():
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the backward kernel has no CPU mode")
-    binning, inputs, fwd, cot = scene("cuda")
-    plain = blend.blend_backward_torch(binning.tile_gauss, inputs, fwd, cot, W, H)
-    return binning, inputs, fwd, cot, plain
+    binning, table, fwd, cot = scene("cuda")
+    plain = fields_of(blend.blend_backward_torch(binning.tile_gauss, table, fwd, cot, W, H))
+    return binning, table, fwd, cot, plain
 
 
 @pytest.fixture(scope="module")
@@ -101,10 +105,9 @@ def copies():
 
 
 def check_kernel(card):
-    binning, inputs, fwd, cot, plain = card
-    g1 = blend.blend_backward(binning, inputs, fwd, cot, W, H, tiles_per_block=1)
-    g2 = blend.blend_backward(binning, inputs, fwd, cot, W, H, tiles_per_block=2)
-    g2b = blend.blend_backward(binning, inputs, fwd, cot, W, H, tiles_per_block=2)
+    binning, table, fwd, cot, plain = card
+    g1, g2, g2b = (fields_of(blend.blend_backward(binning, table, fwd, cot, W, H,
+                                                  tiles_per_block=g)) for g in (1, 2, 2))
     torch.cuda.synchronize()
     for k, v in plain.items():
         assert torch.equal(g1[k], g2[k]) and torch.equal(g2[k], g2b[k]), k

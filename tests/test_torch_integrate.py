@@ -29,7 +29,7 @@ from radegs_tpu.ops import integrate as ji
 from radegs_tpu.ops.pallas_integrate import integrate_image_pallas, integrate_points_pallas
 from radegs_tpu.renderer import integrate as j_integrate
 from radegs_torch.core.camera import Camera as TCamera
-from radegs_torch.core.projection import PreprocessOut
+from radegs_torch.core.projection import COLUMNS, PreprocessOut
 from radegs_torch.models import gaussian_model as tgm
 from radegs_torch.ops import integrate as ti
 from radegs_torch.renderer import integrate as t_integrate, integrate_points, \
@@ -62,8 +62,9 @@ def scene_prep(W, H, seed=0, P=150):
         jnp.asarray(rng.uniform(0.3, 0.99, (P, 1)), jnp.float32),
         jnp.asarray(rng.uniform(0, 1, (P, 1, 3)), jnp.float32),
         sh_degree=0, camera=JCamera.look_at(*args), kernel_size=0.1, compute_invraycov=True)
-    tprep = PreprocessOut(**{k: torch.from_numpy(np.array(getattr(prep, k)))
-                             for k in PreprocessOut.__dataclass_fields__})
+    t = {k: torch.from_numpy(np.array(getattr(prep, k)))
+         for k in ["valid", "radius", "well_conditioned", "invraycov", *COLUMNS]}
+    tprep = PreprocessOut.from_fields(**t)
     return prep, tprep, JCamera.look_at(*args), TCamera.look_at(*args, device="cpu")
 
 

@@ -58,7 +58,8 @@ def test_card_deep_tile_kernels_match_plain():
     their plain versions: forward abs 1e-4, backward rel 1e-4 per field."""
     need_card()
     from radegs_torch.ops import blend
-    from radegs_torch.ops.rasterize import bin_prep, blend_inputs
+    from radegs_torch.core.projection import COLUMNS, column
+    from radegs_torch.ops.rasterize import bin_prep
 
     dev = torch.device("cuda")
     cfg, _, _, cam, state, _ = deep_tile(dev)
@@ -73,12 +74,14 @@ def test_card_deep_tile_kernels_match_plain():
     for p in (prep, on_cpu):
         b = bin_prep(p, 16, 16, 1 << 16, 1 << 15, need_tile_gauss=p is on_cpu)
         assert int(b.tile_overflow) == 0 and int(b.max_tile_count) > 1 << 14
-        inputs = tuple(x.detach() for x in blend_inputs(p))
-        fwd = blend.blend_forward(b, inputs, 16, 16)
+        table = p.table.detach()
+        fwd = blend.blend_forward(b, table, 16, 16)
         if cot is None:
             cot = {k: torch.randn(fwd[k].shape, generator=g) for k in blend.DIFF_KEYS}
         dev_cot = {k: v.to(p.xy.device) for k, v in cot.items()}
-        outs[p.xy.device.type] = (fwd, blend.blend_backward(b, inputs, fwd, dev_cot, 16, 16))
+        grad = blend.blend_backward(b, table, fwd, dev_cot, 16, 16)
+        outs[p.xy.device.type] = (fwd, {**{f: column(grad, f) for f in COLUMNS},
+                                        "xy_abs": grad[:, blend.XY_ABS:]})
     (kf, kg), (pf, pg) = outs["cuda"], outs["cpu"]
     for k in blend.DIFF_KEYS:
         assert float((kf[k].cpu() - pf[k]).abs().max()) <= 1e-4, k

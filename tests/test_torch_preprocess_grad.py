@@ -11,10 +11,9 @@ plane and past the frustum's edge, splats 1e-5 on every axis and flat ones
 the active ones (whole blocks of 128 too); SH degrees 0-3 with an active
 degree below the maximum, ``kernel_size`` 0 and 0.1, ``scale_modifier``
 0.7, at capacities 4096 and 4999 and, on the card, 2^17 and 1,000,003.
-Seeded random cotangents go on every differentiable field, some of them
-strided views of one table of rows (as the blend's backward hands them
-over) and one an expanded zero stride; the second case sends None for
-some fields.
+A seeded random cotangent goes on the per-Gaussian table, contiguous or as
+the (P, 24) view of a wider buffer of rows (as the blend's backward hands
+it over); none reads as zeros.
 
 The measure of truth is autograd in float64 on the CPU. Row by row and
 field by field, the kernel's error (the largest of the row's components)
@@ -32,7 +31,8 @@ must not be either, and the other way round; an inactive row's gradient is
 exact zeros.
 
 On the CPU the kernel's source is compiled for the host (``g++ -x c++``:
-the file's row arithmetic with a C entry that loops over the rows), whose
+the file's row arithmetic, with ``csrc/preprocess_common.cuh``, and a C
+entry that loops over the rows), whose
 libm and FMA order round the recomputed forward differently from PyTorch's
 CPU kernels; on the card the recomputation has the forward's bits. The CPU
 also runs the autograd Function's plumbing with the host build behind it.
@@ -54,6 +54,7 @@ import torch
 
 from radegs_torch import renderer
 from radegs_torch.core.camera import Camera
+from radegs_torch.core.projection import N_FEAT, PreprocessOut
 from radegs_torch.models import gaussian_model as gm
 from radegs_torch.native import build
 from radegs_torch.ops import preprocess as pp
@@ -69,10 +70,10 @@ K = 16  # the multiple of float32 autograd's own error (see the module's note)
 # again; on the card the recomputation has the forward's bits
 K_HOST = 2 * K
 FLOOR_ULPS = 2.0 ** -19  # 16 ulps of the row's largest component
-FIELDS = [f for f, _ in pp.GRAD_FIELDS]
 PARAMS = ["xyz", "f_dc", "f_rest", "scaling", "rotation", "opacity"]
-# the fields the second case sends None for
-ABSENT = ("depth", "conic", "camera_plane", "ts")
+# the table's cotangent: contiguous, the view of a wider buffer of rows at
+# the blend's row stride, none
+LAYOUTS = ("contiguous", "blend_rows", "none")
 # (SH degree, active degree, kernel_size, scale_modifier, capacity), as
 # test_torch_preprocess_kernel.py's CASES; the CPU runs the first six
 CASES = [(3, 3, 0.1, 1.0, 4096), (3, 1, 0.0, 0.7, 4096), (2, 2, 0.1, 0.7, 4096),
@@ -81,30 +82,23 @@ CASES = [(3, 3, 0.1, 1.0, 4096), (3, 1, 0.0, 0.7, 4096), (2, 2, 0.1, 0.7, 4096),
 HOST_CASES = [c for c in CASES if c[4] < 1 << 17]
 
 
-def cotangents(state, seed, absent=()):
-    """Seeded random cotangents of the differentiable fields: xy, conic,
-    rgb, view_point, ray_plane and normal as views of one (P, 25) table of
-    rows, as the blend's backward hands them over; ``depth`` an expanded
-    zero stride; the rest contiguous. ``absent`` fields are None."""
-    P = state.capacity
+def cotangent(state, seed, layout="contiguous"):
+    """A seeded random cotangent of the (P, 24) table: contiguous, or the
+    first 24 columns of a (P, 26) buffer of rows as the blend's backward
+    hands it over (``blend_rows``), or None (``none``)."""
+    if layout == "none":
+        return None
     g = torch.Generator().manual_seed(seed)
-    rows = torch.randn((P, 25), generator=g)
-    cots = {"xy": rows[:, 0:2], "conic": rows[:, 3:6], "rgb": rows[:, 7:10],
-            "view_point": rows[:, 10:13], "ray_plane": rows[:, 19:21],
-            "normal": rows[:, 21:24], "depth": torch.randn((1,), generator=g).expand(P),
-            "opacity": torch.randn((P,), generator=g), "ts": torch.randn((P,), generator=g),
-            "camera_plane": torch.randn((P, 3, 2), generator=g)}
-    return {f: None if f in absent else cots[f].to(state.device) for f in FIELDS}
+    width = N_FEAT + 2 if layout == "blend_rows" else N_FEAT
+    return torch.randn((state.capacity, width), generator=g)[:, :N_FEAT].to(state.device)
 
 
-def autograd_grads(state, cam, cots, kernel_size, modifier):
-    """The six parameter gradients of sum(field * cotangent) through the
-    plain version, on the state's device and in its dtype."""
+def autograd_grads(state, cam, cot, kernel_size, modifier):
+    """The six parameter gradients of sum(table * cot) through the plain
+    version (zeros for None), on the state's device and in its dtype."""
     params = state.params.map(lambda x: x.detach().clone().requires_grad_(True))
     prep = pp.preprocess_torch(state.replace(params=params), cam, kernel_size, modifier)
-    used = [(getattr(prep, f), c) for f, c in cots.items() if c is not None]
-    torch.autograd.backward([o for o, _ in used],
-                            [c.to(o.dtype).reshape(o.shape) for o, c in used])
+    prep.table.backward(torch.zeros_like(prep.table) if cot is None else cot.to(prep.table))
     return params.map(lambda x: torch.zeros_like(x) if x.grad is None else x.grad.detach())
 
 
@@ -131,15 +125,15 @@ def one_ulp_away(state, seed):
 
 class Yardstick:
     """Float64 autograd's gradients (the truth) and float32 autograd's own
-    error, at the inputs and one ulp away, for one state, view and set of
-    cotangents."""
+    error, at the inputs and one ulp away, for one state, view and table
+    cotangent."""
 
-    def __init__(self, state, cam, cots, kernel_size, modifier, plain32=None):
+    def __init__(self, state, cam, cot, kernel_size, modifier, plain32=None):
         s64, c64 = to_float64(state, cam)
-        cots64 = {f: None if c is None else c.cpu().double() for f, c in cots.items()}
-        self.truth = autograd_grads(s64, c64, cots64, kernel_size, modifier)
-        self.plain = plain32 or autograd_grads(state, cam, cots, kernel_size, modifier)
-        self.nudged = autograd_grads(one_ulp_away(state, 11), cam, cots, kernel_size,
+        cot64 = None if cot is None else cot.cpu().double()
+        self.truth = autograd_grads(s64, c64, cot64, kernel_size, modifier)
+        self.plain = plain32 or autograd_grads(state, cam, cot, kernel_size, modifier)
+        self.nudged = autograd_grads(one_ulp_away(state, 11), cam, cot, kernel_size,
                                      modifier)
         self.active = state.active.cpu()
 
@@ -190,20 +184,20 @@ def host_entry(tmp_path_factory):
                     "-fPIC", "-Wall", "-Werror", "-o", str(so), str(src)], check=True,
                    capture_output=True, text=True)
     fn = ctypes.CDLL(str(so)).radegs_preprocess_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-@pytest.mark.parametrize("absent", [(), ABSENT], ids=["every_field", "some_none"])
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("degree,active,kernel_size,modifier,capacity", HOST_CASES)
 def test_host_build_matches_autograd(host_entry, degree, active, kernel_size, modifier,
-                                     capacity, absent):
+                                     capacity, layout):
     state, cam = scene("cpu", degree, active, capacity=capacity), camera("cpu")
-    cots = cotangents(state, 5 + degree, absent)
-    got = pp.launch_backward(host_entry, state, cam, kernel_size, modifier, cots)
-    Yardstick(state, cam, cots, kernel_size, modifier).check(got, K=K_HOST)
+    cot = cotangent(state, 5 + degree, layout)
+    got = pp.launch_backward(host_entry, state, cam, kernel_size, modifier, cot)
+    Yardstick(state, cam, cot, kernel_size, modifier).check(got, K=K_HOST)
 
 
 def test_the_scene_reaches_every_backward_branch():
@@ -217,71 +211,87 @@ def test_the_scene_reaches_every_backward_branch():
     assert (act & ~prep.well_conditioned).any()
     limx = 1.3 * float(cam.tanfovx)
     assert (act & (prep.view_point[:, 0] / prep.depth).abs().gt(limx)).any()
-    assert (act & (prep.opacity == 0)).any() and (act & (prep.opacity > 0)).any()
+    assert (act & prep.valid & (prep.opacity == 0)).any() and (act & (prep.opacity > 0)).any()
     assert (act[:, None] & (prep.rgb == 0)).any()
 
 
-def test_cotangents_checks_and_strides():
-    state = scene("cpu", 1, 1)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_table_gradient_checks_and_strides(host_entry, layout):
+    """The table's gradient reaches the entry at its own pointer and row
+    stride (a view of a wider buffer is read in place; one whose columns
+    are not adjacent is copied first; None reads as zeros), and one of
+    another dtype or shape raises."""
+    state, cam = scene("cpu", 1, 1), camera("cpu")
     P = state.capacity
-    cots = cotangents(state, 0, ("ts",))
-    ptrs, strides = pp._cotangents(cots, P, torch.device("cpu"))
-    k = FIELDS.index
-    assert ptrs[k("ts")] is None and list(strides[3 * k("ts"):3 * k("ts") + 3]) == [0, 0, 0]
-    assert ptrs[k("conic")] == cots["conic"].data_ptr()
-    assert list(strides[3 * k("conic"):3 * k("conic") + 3]) == [25, 1, 0]
-    assert list(strides[3 * k("depth"):3 * k("depth") + 3]) == [0, 0, 0]
-    assert list(strides[3 * k("camera_plane"):3 * k("camera_plane") + 3]) == [6, 2, 1]
-    with pytest.raises(ValueError, match="gradient of rgb"):
-        pp._cotangents({**cots, "rgb": cots["rgb"].double()}, P, torch.device("cpu"))
-    with pytest.raises(ValueError, match="gradient of xy"):
-        pp._cotangents({**cots, "xy": cots["xy"][:-1]}, P, torch.device("cpu"))
+    cot = cotangent(state, 0, layout)
+    want = pp.launch_backward(host_entry, state, cam, 0.1, 1.0,
+                              torch.zeros((P, N_FEAT)) if cot is None else cot.contiguous())
+    seen = []
+
+    def entry(*a):
+        seen.append((a[12], a[19]))
+        return host_entry(*a)
+
+    got = pp.launch_backward(entry, state, cam, 0.1, 1.0, cot)
+    assert seen == [(None, 0) if cot is None else (cot.data_ptr(), cot.stride(0))]
+    assert seen[0][1] == {"contiguous": N_FEAT, "blend_rows": N_FEAT + 2, "none": 0}[layout]
+    for name in PARAMS:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    if cot is not None:
+        apart = cot.T.contiguous().T  # column stride P: read after a copy
+        again = pp.launch_backward(host_entry, state, cam, 0.1, 1.0, apart)
+        for name in PARAMS:
+            assert torch.equal(getattr(again, name), getattr(want, name)), name
+        with pytest.raises(ValueError, match="table's gradient"):
+            pp.launch_backward(host_entry, state, cam, 0.1, 1.0, cot.double())
+        with pytest.raises(ValueError, match="table's gradient"):
+            pp.launch_backward(host_entry, state, cam, 0.1, 1.0, cot[:-1])
 
 
 def test_backward_raises_off_the_card_and_for_invraycov():
     state, cam = scene("cpu", 0, 0), camera("cpu")
     with pytest.raises(ValueError, match="cuda tensors"):
-        pp.preprocess_backward(state, cam, 0.1, 1.0, cotangents(state, 0))
+        pp.preprocess_backward(state, cam, 0.1, 1.0, cotangent(state, 0))
     with pytest.raises(ValueError, match="inverse ray-space covariance"):
         pp.preprocess_train(state, cam, 0.1, 1.0, compute_invraycov=True)
 
 
-@pytest.mark.parametrize("absent", [(), ABSENT], ids=["every_field", "some_none"])
-def test_function_hands_each_field_gradient_to_the_backward(host_entry, monkeypatch, absent):
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_function_hands_each_field_gradient_to_the_backward(host_entry, monkeypatch, layout):
     """``PreprocessFunction`` on the CPU with the host build behind its
-    backward (the forward's table from the plain version): autograd hands
-    the backward each field's gradient as it is (None for a field with none,
-    never a table), and the parameters receive the host build's gradients."""
+    backward (the forward's table from the plain version): it has one
+    differentiable output, the table, whose gradient autograd hands the
+    backward as it is (the same tensor: a view of a wider buffer stays
+    one), and the parameters receive the host build's gradients. With
+    ``none`` the table gets a zero cotangent by autograd, which reads as
+    the entry's null."""
     state, cam = scene("cpu", 2, 1), camera("cpu")
     seen = []
 
     def forward(st, c, ks, mod, inv=False):
         with torch.no_grad():
             out = pp.preprocess_torch(st, c, ks, mod, inv)
-        table = torch.zeros((st.capacity, pp.N_FEAT))
-        for f, col in pp.COLUMNS.items():
-            v = getattr(out, f)
-            table[:, col] = (v.transpose(1, 2).flatten(1) if f == "camera_plane" else v)
-        return pp.from_table(table, out.radius, out.valid, out.well_conditioned)
+        return PreprocessOut(out.table.contiguous(), out.valid, out.radius,
+                             out.well_conditioned)
 
-    def backward(st, c, ks, mod, grads):
-        seen.append(grads)
-        return pp.launch_backward(host_entry, st, c, ks, mod, grads)
+    def backward(st, c, ks, mod, grad):
+        seen.append(grad)
+        return pp.launch_backward(host_entry, st, c, ks, mod, grad)
 
     monkeypatch.setattr(pp, "preprocess_forward", forward)
     monkeypatch.setattr(pp, "preprocess_backward", backward)
     params = state.params.map(lambda x: x.clone().requires_grad_(True))
     prep = pp.preprocess_train(state.replace(params=params), cam, 0.1, 0.7)
-    assert prep.xy.grad_fn is not None and not prep.valid.requires_grad
-    cots = cotangents(state, 3, absent)
-    used = [(getattr(prep, f), c) for f, c in cots.items() if c is not None]
-    torch.autograd.backward([o for o, _ in used], [c for _, c in used])
-    (grads,) = seen
-    assert {f for f, g in grads.items() if g is None} == set(absent)
-    for f, g in grads.items():
-        if g is not None:
-            assert torch.equal(g, cots[f]), f
-    want = pp.launch_backward(host_entry, state, cam, 0.1, 0.7, cots)
+    assert prep.table.grad_fn is not None and not prep.valid.requires_grad
+    assert prep.radius.grad_fn is None and not prep.well_conditioned.requires_grad
+    cot = cotangent(state, 3, layout)
+    prep.table.backward(torch.zeros_like(prep.table) if cot is None else cot)
+    (grad,) = seen
+    if cot is None:
+        assert not grad.any()
+    else:
+        assert grad is cot or (grad.data_ptr(), grad.stride()) == (cot.data_ptr(), cot.stride())
+    want = pp.launch_backward(host_entry, state, cam, 0.1, 0.7, cot)
     for name in PARAMS:
         assert torch.equal(getattr(params, name).grad, getattr(want, name)), name
 
@@ -296,21 +306,20 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("absent", [(), ABSENT], ids=["every_field", "some_none"])
+@pytest.mark.parametrize("layout", LAYOUTS[:2])
 @pytest.mark.parametrize("degree,active,kernel_size,modifier,capacity", CASES)
-def test_kernel_matches_autograd(degree, active, kernel_size, modifier, capacity, absent):
+def test_kernel_matches_autograd(degree, active, kernel_size, modifier, capacity, layout):
     dev = card()
     state, cam = scene(dev, degree, active, capacity=capacity), camera(dev)
-    cots = cotangents(state, 5 + degree, absent)
+    cot = cotangent(state, 5 + degree, layout)
     params = state.params.map(lambda x: x.clone().requires_grad_(True))
     before = dict(pp.LAUNCHES)
     prep = pp.preprocess_train(state.replace(params=params), cam, kernel_size, modifier)
-    used = [(getattr(prep, f), c) for f, c in cots.items() if c is not None]
-    torch.autograd.backward([o for o, _ in used], [c for _, c in used])
+    prep.table.backward(cot)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in pp.LAUNCHES.items() if v != before[k]} == {
         f"preprocess_fwd[sh={degree},inv=0]": 1, f"preprocess_bwd[sh={degree}]": 1}
-    Yardstick(state, cam, cots, kernel_size, modifier).check(
+    Yardstick(state, cam, cot, kernel_size, modifier).check(
         params.map(lambda x: x.grad), f"sh={degree} capacity {capacity}: ")
 
 
@@ -333,21 +342,16 @@ def test_a_train_step_matches_the_plain_chain(monkeypatch):
     def run(prepare_fn):
         arrived, grads = {}, []
 
-        def keep(f):
-            def hook(g):  # autograd calls it with None for a field with no gradient
-                if g is not None:
-                    arrived[f] = g.clone()
-            return hook
+        def keep(g):
+            arrived["table"] = g.clone()
 
         def traced(*a, **kw):
-            # each field through a view of its own, whose gradient is the
-            # output's alone (the plain chain's view_point also feeds ts, u
-            # and v inside it)
+            # the table through a view of its own, whose gradient is the
+            # output's alone
             prep = prepare_fn(*a, **kw)
-            out = {f: getattr(prep, f).view_as(getattr(prep, f)) for f in FIELDS}
-            for f, t in out.items():
-                t.register_hook(keep(f))
-            return prep.replace(**out)
+            table = prep.table.view_as(prep.table)
+            table.register_hook(keep)
+            return prep.replace(table=table)
 
         def adam_step(st, g, lrs):
             grads.append(g)
@@ -366,8 +370,7 @@ def test_a_train_step_matches_the_plain_chain(monkeypatch):
     assert set(fused[2]) == set(plain[2]) and fused[2]
     for f in fused[2]:
         assert torch.equal(fused[2][f], plain[2][f]), f
-    cots = {f: fused[2].get(f) for f in FIELDS}
-    ys = Yardstick(state, cam, cots, 0.1, 1.0, plain32=plain[3])
+    ys = Yardstick(state, cam, fused[2]["table"], 0.1, 1.0, plain32=plain[3])
     ys.check(fused[3], "gradient ")
     g = fused[0]
     ys.check(g.adam_m.map(lambda m: m / (1 - optim.BETA1)), "adam_m ")

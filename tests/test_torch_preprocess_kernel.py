@@ -7,9 +7,10 @@ the ``cuda`` tests skip without a card.
 On the CPU: ``prepare`` runs the plain version for CPU tensors; on a card
 (a state that reports a CUDA device, its tensors on the CPU) it hands a
 view that parameters a gradient can flow from to the kernel pair
-(``preprocess_train``) and every other view to the kernel's wrapper. The table's views
-(``from_table``) read back through ``pack_features`` equal a seeded table
-bit for bit, and have the plain version's shapes and dtypes.
+(``preprocess_train``) and every other view to the kernel's wrapper. The
+fields of a ``PreprocessOut`` (views of its table) read back through
+``pack_table`` equal a seeded table bit for bit, cannot be replaced apart
+from it, and have the plain version's shapes and dtypes.
 
 On the card, the kernel against the plain version on a seeded scene with
 inactive rows among the active ones, rows behind the near plane and beyond
@@ -29,7 +30,9 @@ through the plain version (every map the same), the syncs of a served view (3, b
 ``torch.cuda.set_sync_debug_mode``, and ``launches.preprocess``: one
 launch a served view, one forward and one backward launch a train step,
 and no plain preprocess (tests/test_torch_preprocess_grad.py holds the
-backward's gradients).
+backward's gradients); in that step the blend kernels read the preprocess
+kernel's table, and the preprocess backward the blend's gradient buffer, by
+pointer, with nothing copied between them.
 """
 
 import warnings
@@ -40,6 +43,7 @@ import torch
 
 from radegs_torch import renderer
 from radegs_torch.core.camera import Camera
+from radegs_torch.core.projection import COLUMNS, N_FEAT, PreprocessOut, pack_table
 from radegs_torch.models import gaussian_model as gm
 from radegs_torch.ops import blend
 from radegs_torch.ops import preprocess as pp
@@ -167,24 +171,24 @@ def test_needs_grad():
 @pytest.mark.parametrize("seed", [0, 1])
 def test_table_views_read_back_through_pack_features(seed):
     P = 300
-    table = torch.randn((P, blend.N_FEAT), generator=torch.Generator().manual_seed(seed))
-    out = pp.from_table(table, torch.zeros(P), torch.ones(P, dtype=torch.bool),
+    table = torch.randn((P, N_FEAT), generator=torch.Generator().manual_seed(seed))
+    out = PreprocessOut(table, torch.ones(P, dtype=torch.bool), torch.zeros(P),
                         torch.ones(P, dtype=torch.bool))
-    packed = blend.pack_features((out.xy, out.conic, out.opacity, out.rgb, out.view_point,
-                                  out.camera_plane, out.ray_plane, out.normal, out.ts))
+    packed = pack_table(**{f: getattr(out, f) for f in COLUMNS})
     assert torch.equal(packed, table)
     assert torch.equal(out.depth, out.view_point[:, 2])
     for f in FIELDS:  # views of the table, not copies
         assert getattr(out, f).untyped_storage().data_ptr() == table.untyped_storage().data_ptr()
+        with pytest.raises(TypeError):  # no field is held apart from the table
+            out.replace(**{f: getattr(out, f) + 1})
 
 
 def test_table_views_have_the_plain_shapes_and_dtypes():
     state, cam = scene("cpu", 2, 1), camera("cpu")
     want = pp.preprocess_torch(state, cam, 0.1, compute_invraycov=True)
     P = state.capacity
-    got = pp.from_table(torch.zeros((P, blend.N_FEAT)), torch.zeros(P),
-                        torch.zeros(P, dtype=torch.bool), torch.zeros(P, dtype=torch.bool),
-                        torch.zeros((P, 3, 3)))
+    got = PreprocessOut(torch.zeros((P, N_FEAT)), torch.zeros(P, dtype=torch.bool),
+                        torch.zeros(P), torch.zeros(P, dtype=torch.bool), torch.zeros((P, 3, 3)))
     for f in FIELDS + ("valid", "radius", "well_conditioned", "invraycov"):
         a, b = getattr(got, f), getattr(want, f)
         assert (a.shape, a.dtype) == (b.shape, b.dtype), f
@@ -317,3 +321,40 @@ def test_a_train_step_takes_the_plain_version():
     assert launches == {"launches.preprocess.preprocess_fwd[sh=3,inv=0]": 1,
                         "launches.preprocess.preprocess_bwd[sh=3]": 1}
     assert "preprocess.plain" not in u["counts"]
+
+
+@pytest.mark.cuda
+def test_a_train_step_hands_the_table_over_by_pointer(monkeypatch):
+    """One ``make_train_step`` step: both blend kernels read the table the
+    preprocess kernel wrote, and the preprocess backward reads the blend
+    backward's gradient buffer at its row stride, each at its own pointer."""
+    dev = card()
+    state, cam = scene(dev), camera(dev)
+    gt = torch.rand((3, H, W), generator=torch.Generator().manual_seed(4)).to(dev)
+    step = loop.make_train_step(ModelConfig(kernel_size=0.1),
+                                OptimizationConfig(regularization_from_iter=0),
+                                PipelineConfig(max_per_tile=256, instance_budget=1 << 16), 1.0)
+    seen = {}
+
+    def recorded(name, fn, picks):
+        def call(*a):
+            seen.setdefault(name, []).append(tuple(a[i] for i in picks))
+            return fn(*a)
+        return call
+
+    fwd_entry, bwd_entry, blend_entry = pp._entry, pp._bwd_entry, blend._entry
+    # preprocess_fwd: the table; preprocess_bwd: the gradient and its row
+    # stride; blend_fwd: the table; blend_bwd: the table and the gradient
+    monkeypatch.setattr(pp, "_entry", lambda: recorded("preprocess_fwd", fwd_entry(), (12,)))
+    monkeypatch.setattr(pp, "_bwd_entry",
+                        lambda: recorded("preprocess_bwd", bwd_entry(), (12, 19)))
+    monkeypatch.setattr(blend, "_entry", lambda name: recorded(
+        name, blend_entry(name), (0,) if name == "blend_fwd" else (0, 9)))
+    step(loop.init_train_state(state), cam, gt, torch.zeros(3, device=dev), 0, W, H)
+    torch.cuda.synchronize()
+    ((table,),) = seen["preprocess_fwd"]
+    assert seen["blend_fwd"] == [(table,)]
+    # the walk and the segment sum, launched one at a time
+    assert seen["blend_bwd"][0][0] == table and len(set(seen["blend_bwd"])) == 1
+    grad = seen["blend_bwd"][0][1]
+    assert seen["preprocess_bwd"] == [(grad, blend.GRAD_COLS)]

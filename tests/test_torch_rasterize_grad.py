@@ -102,8 +102,8 @@ def test_rasterize_grad_matches_jax():
         return torch.from_numpy(np.array(x))
 
     leaves = {f: t(getattr(prep, f)).requires_grad_(True) for f in FIELDS}
-    t_prep = PreprocessOut(valid=t(prep.valid), depth=t(prep.depth), radius=t(prep.radius),
-                           well_conditioned=t(prep.well_conditioned), **leaves)
+    t_prep = PreprocessOut.from_fields(t(prep.valid), t(prep.radius),
+                                       t(prep.well_conditioned), **leaves)
     out = t_rasterize(t_prep, TCamera.look_at(*CAM, device="cpu"), t(bg), **KW)
     weighted(out, torch).backward()
     for f, jg in zip(FIELDS, j_grads):

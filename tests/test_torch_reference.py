@@ -108,8 +108,13 @@ def torch_prep(prep):
         return torch.from_numpy(np.array(x))
 
     leaves = {f: t(getattr(prep, f)).requires_grad_(True) for f in FIELDS}
-    return PreprocessOut(valid=t(prep.valid), depth=t(prep.depth), radius=t(prep.radius),
-                         well_conditioned=t(prep.well_conditioned), **leaves), leaves
+    return PreprocessOut.from_fields(t(prep.valid), t(prep.radius), t(prep.well_conditioned),
+                                     **leaves), leaves
+
+
+def with_fields(prep, fields):
+    """``prep`` with its table packed anew from ``fields``."""
+    return PreprocessOut.from_fields(prep.valid, prep.radius, prep.well_conditioned, **fields)
 
 
 def test_forward_matches_jax(case):
@@ -160,7 +165,7 @@ def test_rasterize_matches_reference_autograd(P, seed, W, H, opacity):
     prep, cam = raster_scene(P, seed, W, H, opacity)
     bg = torch.tensor([0.3, 0.2, 0.1])
     leaves = {f: getattr(prep, f).detach().clone().requires_grad_(True) for f in FIELDS}
-    out = rasterize(prep.replace(**leaves), cam, bg, max_per_tile=256, instance_budget=1 << 14)
+    out = rasterize(with_fields(prep, leaves), cam, bg, max_per_tile=256, instance_budget=1 << 14)
     assert int(out["binning"].n_overflow) == 0 and int(out["binning"].tile_overflow) == 0
     rng = np.random.default_rng(3)
     weights = {k: torch.tensor(rng.normal(size=tuple(out[k].shape)).astype(np.float32))
@@ -168,7 +173,7 @@ def test_rasterize_matches_reference_autograd(P, seed, W, H, opacity):
     sum((weights[k] * out[k]).sum() for k in RASTER_KEYS).backward()
 
     ref_leaves = {f: getattr(prep, f).detach().clone().requires_grad_(True) for f in FIELDS}
-    ref = t_reference(prep.replace(**ref_leaves), W, H, cam.focal_x, cam.focal_y, bg)
+    ref = t_reference(with_fields(prep, ref_leaves), W, H, cam.focal_x, cam.focal_y, bg)
     if opacity is not None:
         assert (ref["t_final"] < 1e-3).any()  # pixels end early
     for k, r in RASTER_KEYS.items():
