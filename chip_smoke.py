@@ -308,6 +308,17 @@ path (``launches``) and on the paths of phases 6, 7, 8 and 10
 (``train_launches``, ``mesh_launches``, ``cli_launches``,
 ``eval_launches``) beside 11a, 12b and 13's; a log line gives every SH
 degree's launches by path.
+``python3 chip_smoke.py --adam`` runs only the setup and the Adam and
+statistics kernel (``csrc/adam_stats.cu``) at the train cells' row counts,
+2^21 and 2^23 at SH degree 3 (a seeded state mid-training, 70% active):
+against the plain chain on the card (every output the same bits), alone in
+a CUDA graph beside its bytes bound (1714 B a row), the plain chain's ms a
+call, and copies of its source with other constants (``ADAM_VARIANTS``),
+each held to its bits and timed in turns with it. The default run does the
+same without the copies after phase 13; its kernels line's ``adam_stats``
+row gives the kernel's launches on the paths of phases 6, 12b and 13
+(``train_launches``, ``parallel_launches``, ``bench_launches``; once an
+iteration, checked in 6 and 12b).
 
 Every phase that fails raises, and the script exits non-zero without the
 result lines. The last three lines are the card's name and power limit, a
@@ -317,6 +328,7 @@ JSON object with a ``kernels`` list, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import hashlib
 import io
@@ -1624,6 +1636,160 @@ def train_step_launches(state, cam, budget):
     return launches
 
 
+# the least bytes of Adam and the statistics (csrc/adam_stats.cu): every
+# parameter float's p, g, m and v read and p, m and v written (7 x 4 B), and
+# a row's statistics: the screen gradient (8 B), the abs-gradient's sector
+# (8 B), the visible and active flags and the radius (6 B), five
+# accumulators read and written (40 B)
+def adam_stats_bytes(state):
+    P = state.capacity
+    width = sum(p.numel() for _, p in state.params.items()) // P
+    return P * (7 * 4 * width + 62)
+
+
+def adam_inputs(P, seed):
+    """A seeded state of ``P`` rows mid-training at SH degree 3 (70% active,
+    scattered; moments non-zero), its step's gradients and the statistics'
+    inputs of a 1237 x 822 view, all on the card."""
+    from radegs_torch.models import gaussian_model as gm
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = dict(xyz=(P, 3), f_dc=(P, 1, 3), f_rest=(P, 15, 3), scaling=(P, 3),
+                  rotation=(P, 4), opacity=(P, 1))
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def rand(scale):
+        return torch.rand(P, generator=gen, device=dev) * scale
+
+    active = rand(1.0) < 0.7
+    state = gm.GaussianState(
+        params=gm.GaussianParams(**{k: randn(s) for k, s in shapes.items()}), active=active,
+        filter_3d=torch.zeros((P, 1), device=dev), max_radii2d=torch.floor(rand(40.0)),
+        grad_accum=rand(1.0), grad_abs_accum=rand(1.0), grad_abs_max=rand(1e-2),
+        denom=torch.floor(rand(9.0)),
+        adam_m=gm.GaussianParams(**{k: randn(s, 1e-2) for k, s in shapes.items()}),
+        adam_v=gm.GaussianParams(**{k: randn(s, 1e-2).abs_() for k, s in shapes.items()}),
+        adam_step=99, active_sh_degree=3, max_sh_degree=3)
+    grads = gm.GaussianParams(**{k: randn(s, 1e-3) for k, s in shapes.items()})
+    visible = rand(1.0) < 0.5
+    radii = torch.where(visible, torch.floor(rand(60.0)), 0.0)
+    xy_abs = torch.stack([randn((P,), 1e-4).abs_(), torch.zeros(P, device=dev)], 1)
+    return state, grads, randn((P, 2), 1e-4), xy_abs, visible, radii, (618.5, 411.0)
+
+
+def adam_outputs(state):
+    from radegs_torch.train import optim
+
+    out = {f"{part}.{k}": t for part in ("params", "adam_m", "adam_v")
+           for k, t in getattr(state, part).items()}
+    return out | {f: getattr(state, f) for f in optim.STATS_FIELDS}
+
+
+def adam_differing(got, want):
+    """The outputs whose bits differ, with the count of differing floats."""
+    a, b = adam_outputs(got), adam_outputs(want)
+    return {k: int((a[k].view(torch.int32) != b[k].view(torch.int32)).sum()) for k in a
+            if not same_bits(a[k], b[k])}
+
+
+@contextlib.contextmanager
+def adam_entry(fn):
+    """``optim.adam_and_stats_kernel`` launching ``fn`` (a C entry with the
+    kernel's signature) while open."""
+    from radegs_torch.train import optim
+
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_float] * 10 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    keep = optim._entry
+    optim._entry = lambda: fn
+    try:
+        yield
+    finally:
+        optim._entry = keep
+
+
+# copies of csrc/adam_stats.cu with other constants, held to the kernel's
+# bits and timed beside it by --adam
+ADAM_VARIANTS = {"ITEMS=2": {"ITEMS": 2}, "ITEMS=4": {"ITEMS": 4}, "NT=128": {"NT": 128},
+                 "NT=512": {"NT": 512}}
+
+
+def adam_alone(variants=False):
+    """The Adam and statistics kernel at the train cells' row counts (2^21,
+    2^23; SH degree 3): against the plain chain on the card (every output
+    the same bits), alone in a CUDA graph beside its bytes bound, and the
+    plain chain's ms a call (CUDA events). ``variants``: the kernel rebuilt
+    from copies of its source with other constants (``ADAM_VARIANTS``),
+    each held to the kernel's bits and timed in turns with it."""
+    from radegs_torch.native import build
+    from radegs_torch.train import optim
+
+    libs = {}
+    if variants:
+        text = (build.CSRC / "adam_stats.cu").read_text()
+        libs = {label: lib.radegs_adam_stats for label, (lib, _) in build.build_copies(
+            {label: (build.with_constants(text, c), build.CSRC)
+             for label, c in ADAM_VARIANTS.items()},
+            os.path.join(ROOT, "build", "chip_smoke", "adam")).items()}
+    res = {}
+    for log2, reps in ((21, 20), (23, 10)):
+        args = adam_inputs(1 << log2, 22 + log2)
+        lrs = optim.GroupLRs(xyz=5.9e-4)
+        got = optim.adam_and_stats_kernel(args[0], args[1], lrs, *args[2:])
+        want = optim.adam_and_stats_torch(args[0], args[1], lrs, *args[2:])
+        torch.cuda.synchronize()
+        diff = adam_differing(got, want)
+        log(f"adam_stats at 2^{log2} rows vs the plain chain, floats with other bits: {diff}")
+        check(not diff, f"adam_stats at 2^{log2} rows is not the plain chain bit for bit: {diff}")
+        del want
+        row = {"alone": graph_ms(lambda: optim.adam_and_stats_kernel(args[0], args[1], lrs,
+                                                                     *args[2:]), reps),
+               "plain_ms": time_ms(lambda: optim.adam_and_stats_torch(args[0], args[1], lrs,
+                                                                      *args[2:]), 3),
+               "bound": adam_stats_bytes(args[0]) / PEAK_BYTES * 1e3}
+        log(f"adam_stats alone at 2^{log2} rows (CUDA graph of {reps}): {row['alone']:.4f} ms; "
+            f"bytes bound {row['bound']:.4f} ms ({adam_stats_bytes(args[0])} B, "
+            f"{100 * row['bound'] / row['alone']:.1f}% of it); plain chain "
+            f"{row['plain_ms']:.3f} ms")
+        for label, fn in libs.items():
+            with adam_entry(fn):
+                other = optim.adam_and_stats_kernel(args[0], args[1], lrs, *args[2:])
+            torch.cuda.synchronize()
+            diff = adam_differing(other, got)
+            check(not diff, f"adam_stats {label} is not the kernel bit for bit: {diff}")
+            del other
+            turns = []
+            for _ in range(3):
+                turns.append(graph_ms(lambda: optim.adam_and_stats_kernel(
+                    args[0], args[1], lrs, *args[2:]), reps))
+                with adam_entry(fn):
+                    turns.append(graph_ms(lambda: optim.adam_and_stats_kernel(
+                        args[0], args[1], lrs, *args[2:]), reps))
+            row[label] = (float(np.median(turns[0::2])), float(np.median(turns[1::2])))
+            log(f"adam_stats {label} at 2^{log2} rows, same bits; in turns (medians of 3) "
+                f"kernel {row[label][0]:.4f} ms, {label} {row[label][1]:.4f} ms")
+        res[log2] = row
+        del got, args
+        torch.cuda.empty_cache()
+    return res
+
+
+def adam_row(res, launches):
+    """The kernels-list row of the Adam and statistics kernel; ``launches``
+    maps a path (train, parallel, bench) to its ``launches.adam`` counts."""
+    return {"name": "adam_stats", "route": "cuda", "source": "radegs_torch/csrc/adam_stats.cu",
+            "replaces": "none (radegs_tpu/train/optim.py:adam_step and the statistics are XLA)",
+            "same_bits": True, "alone_ms": res[21]["alone"], "plain_ms": res[21]["plain_ms"],
+            "bound_ms": res[21]["bound"], "alone_ms_2p23": res[23]["alone"],
+            "plain_ms_2p23": res[23]["plain_ms"], "bound_ms_2p23": res[23]["bound"],
+            "bound_by": "bytes", "library_ms": None,
+            **{f"{path}_launches": d.get("adam_stats", 0) for path, d in launches.items()}}
+
+
 def preprocess_only(workdir):
     """``--preprocess``: phases 3-4 (the serving path) with the preprocess
     kernel at the dense view 0, phase 7a and phase 7b."""
@@ -1724,6 +1890,7 @@ def train_100k(path, cap, cams, budget):
     scene extent."""
     from radegs_torch.ops import blend
     from radegs_torch.ops import preprocess as pp
+    from radegs_torch.train import optim
     from radegs_torch.train.config import ModelConfig, OptimizationConfig, PipelineConfig
     from radegs_torch.train.loop import train
 
@@ -1738,6 +1905,7 @@ def train_100k(path, cap, cams, budget):
     # ---- the training path starts here ----
     blend.reset_launches()
     pp.reset_launches()
+    optim.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     step_events, host = [], []
     t0 = time.perf_counter()
@@ -1798,6 +1966,7 @@ def training(res):
     from radegs_torch.models import gaussian_model as gm
     from radegs_torch.ops import blend
     from radegs_torch.ops import preprocess as pp
+    from radegs_torch.train import optim
     from radegs_torch.ops.binning import round_budget
     from radegs_torch.train.config import ModelConfig, OptimizationConfig, PipelineConfig
     from radegs_torch.train.loop import TrainState, make_train_step
@@ -1836,6 +2005,7 @@ def training(res):
     dpeak = torch.cuda.max_memory_allocated()
     launches = dict(blend.LAUNCHES)  # the training path ends here
     pre_launches = dict(pp.LAUNCHES)
+    adam_launches = dict(optim.LAUNCHES)
     for g, wall, stages, n in drows:
         log(f"phase 6 dense train step G={g}: {wall:.3f} ms (host clock), "
             + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f" ms; {n} instances")
@@ -1844,8 +2014,10 @@ def training(res):
     check(all(v > 0 for v in launches.values()), f"a kernel never ran on the training path: "
           f"{launches}")
 
-    results.update(launches=launches, pre_launches=pre_launches, dense_rows=drows,
-                   dense_peak=dpeak)
+    check(adam_launches["adam_stats"] == TRAIN_ITERS + len(drows),
+          f"the training path launched adam_stats {adam_launches} times, not once a step")
+    results.update(launches=launches, pre_launches=pre_launches, adam_launches=adam_launches,
+                   dense_rows=drows, dense_peak=dpeak)
     return results
 
 
@@ -4033,6 +4205,7 @@ def rank_phase12(mesh, saved, pcfg):
     for PAR_ITERS iterations with the launch counts set to 0 just before."""
     from radegs_torch.ops import blend
     from radegs_torch.ops import preprocess as pp
+    from radegs_torch.train import optim
     from radegs_torch.train.loop import train
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4044,13 +4217,15 @@ def rank_phase12(mesh, saved, pcfg):
     stamps = []
     blend.reset_launches()  # the multi-rank training path starts here
     pp.reset_launches()
+    optim.reset_launches()
     t0 = time.perf_counter()
     ts, hist = train(scene, g0, *parallel_configs(pcfg), seed=0, log_every=1, mesh=mesh,
                      device=mesh.device,
                      callbacks=[lambda it, ts, m: stamps.append(time.perf_counter())])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**dict(blend.LAUNCHES), **dict(pp.LAUNCHES)}  # ... and ends here
+    launches = {**dict(blend.LAUNCHES), **dict(pp.LAUNCHES),
+                **dict(optim.LAUNCHES)}  # ... and ends here
     finite = all(bool(torch.isfinite(p).all()) for _, p in ts.gaussians.params.items())
     return dict(step=met, gate=gate, step_launches=step_launches, band=band,
                 backend=mesh.backend, hist=hist, launches=launches,
@@ -4167,6 +4342,8 @@ def parallel_training(workdir, res=None, world=2, device="cuda:0"):
         la = o.result["launches"]
         check(la[f"blend_fwd[G={g}]"] > 0 and la[f"blend_bwd[G={g}]"] > 0,
               f"phase 12b rank {r}: a blend kernel never ran on the training path: {la}")
+        check(la["adam_stats"] == PAR_ITERS, f"phase 12b rank {r}: adam_stats launched "
+              f"{la['adam_stats']} times in {PAR_ITERS} iterations")
         check(o.result["hist"][-1]["loss"] == r0["hist"][-1]["loss"],
               "phase 12b: the ranks report different losses")
     hist = r0["hist"]
@@ -4269,15 +4446,18 @@ def bench_phase():
     the bench's kernel launches."""
     from radegs_torch.ops import blend
     from radegs_torch.ops import preprocess as pp
+    from radegs_torch.train import optim
     from radegs_torch.scripts import bench, bench_breakdown
 
     t0 = time.perf_counter()
     # ---- the bench path starts here ----
     blend.reset_launches()
     pp.reset_launches()
+    optim.reset_launches()
     details = {}
     rec = bench.main(["--scene", "both"], details=details)
-    launches = {**dict(blend.LAUNCHES), **dict(pp.LAUNCHES)}  # the bench path ends here
+    launches = {**dict(blend.LAUNCHES), **dict(pp.LAUNCHES),
+                **dict(optim.LAUNCHES)}  # the bench path ends here
     t_bench = time.perf_counter() - t0
     log(f"phase 13 bench: {json.dumps(rec)}")
     for scene, d in details.items():
@@ -4363,6 +4543,12 @@ def main():
         print(smi)
         print(json.dumps({"kernels": rows}))
         return
+    if sys.argv[1:] == ["--adam"]:
+        res = adam_alone(variants=True)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        print(json.dumps({"kernels": [adam_row(res, {})]}))
+        return
     if sys.argv[1:] == ["--tetra"]:
         with tempfile.TemporaryDirectory(dir=workdir) as tmp:
             tetra_only(tmp)
@@ -4409,6 +4595,7 @@ def main():
         qual = quality(tmp)
         par12 = parallel_training(tmp, res)
     bench13 = bench_phase()
+    adam = adam_alone()
     kernels = []
     fwd = res["bwd"]["a"]["fwd"]
     for g, replaces in ((1, "radegs_tpu/ops/pallas_blend.py:263"),
@@ -4468,6 +4655,8 @@ def main():
                  mesh_launches=mesh["launches"][k["name"]], cli_launches=ep["launches"][k["name"]],
                  eval_launches=ev[k["name"]])
     kernels += pre_rows
+    kernels.append(adam_row(adam, {"train": tr["adam_launches"], "parallel": par12["launches"],
+                                   "bench": bench13["launches"]}))
     for k in kernels:  # launches on phase 11a's quality path, 12b's ranks, 13's bench
         k["quality_launches"] = qual["launches"].get(k["name"], 0)
         k["parallel_launches"] = par12["launches"].get(k["name"], 0)

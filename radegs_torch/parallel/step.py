@@ -36,14 +36,13 @@ import torch.nn.functional as F
 
 from radegs_torch.core.geometry import depths_to_points, points_to_normal
 from radegs_torch.core.projection import COLUMNS, N_FEAT, PreprocessOut
-from radegs_torch.models import gaussian_model as gm
 from radegs_torch.models.appearance import AppearanceNetwork, appearance_transform
 from radegs_torch.ops.binning import TILE, default_instance_budget
 from radegs_torch.ops.rasterize import rasterize
 from radegs_torch.ops.ssim import l1_loss, ssim_map
 from radegs_torch.parallel.comm import Mesh1D, all_gather_rows, all_reduce, pmax, psum, with_halo
 from radegs_torch.renderer import prepare
-from radegs_torch.train.optim import GroupLRs, adam_step, appearance_adam, expon_lr
+from radegs_torch.train.optim import GroupLRs, adam_and_stats, appearance_adam, expon_lr
 
 # a gathered row: the table's N_FEAT columns, then these side columns
 RADIUS, VALID, WELL, XY_ABS, XY_OFFSET = (N_FEAT + k for k in (0, 1, 2, 3, 5))
@@ -141,7 +140,7 @@ def make_sharded_train_step(mcfg, ocfg, pcfg, spatial_lr_scale: float, mesh: Mes
     row_ok = (rows_global < height).to(torch.float32)[None, :, None]
     border = ((rows_global <= 0) | (rows_global >= height - 1)).to(torch.float32)
     keep = (1.0 - border)[None, None, :, None] * row_ok[None]
-    ndc_scale = torch.tensor([width * 0.5, height * 0.5], dtype=torch.float32, device=dev)
+    ndc_scale = (width * 0.5, height * 0.5)
     npix, hw = 3.0 * height * width, float(height * width)
     masked = MASKED.to(dev)
     net = AppearanceNetwork()
@@ -231,16 +230,13 @@ def make_sharded_train_step(mcfg, ocfg, pcfg, spatial_lr_scale: float, mesh: Mes
                              lr_delay_mult=ocfg.position_lr_delay_mult),
                 f_dc=ocfg.feature_lr, f_rest=ocfg.feature_lr / 20.0,
                 opacity=ocfg.opacity_lr, scaling=ocfg.scaling_lr, rotation=ocfg.rotation_lr)
-            grads = params.map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad)
-            g = adam_step(g, grads, lrs)
+            g = adam_and_stats(g, params.map(lambda p: p.grad), lrs, xy_offset.grad, xy_abs.grad,
+                               vis, torch.where(vis, rad, 0.0), ndc_scale)
             app_state = {}
             if app is not None:
                 _sum_app_grads(app, mesh)
                 app_state = appearance_adam(app, ts.app_m, ts.app_v, it, ocfg.appearance_network_lr,
                                             ocfg.appearance_embeddings_lr)
-            g = gm.add_densification_stats(g, xy_offset.grad * ndc_scale, xy_abs.grad[:, 0],
-                                           vis)
-            g = gm.update_max_radii(g, torch.where(vis, rad, 0.0), vis)
 
             b = out["binning"]
             part = torch.stack([torch.as_tensor(v, device=dev).to(torch.float64) for v in (

@@ -45,7 +45,7 @@ from radegs_torch.train.config import (
     PipelineConfig,
     replace as replace_cfg,
 )
-from radegs_torch.train.optim import GroupLRs, adam_step, appearance_adam, expon_lr
+from radegs_torch.train.optim import GroupLRs, adam_and_stats, appearance_adam, expon_lr
 from radegs_torch.utils import trace
 from radegs_torch.utils.device import resolve_device
 from radegs_torch.utils.trace import mark
@@ -161,8 +161,9 @@ def make_train_step(mcfg: ModelConfig, ocfg: OptimizationConfig, pcfg: PipelineC
     """The train step for these configurations: ``step(ts, camera, gt_image,
     bg, view_idx, width, height, events=None) -> (ts, metrics)``.
     ``events``: a list that receives (stage, torch.cuda.Event) at the start
-    and after the render, loss, backward, Adam and statistics stages, with
-    the render's and the blend's own marks between them
+    and after the render, loss and backward stages and after Adam and the
+    statistics (``adam_and_stats``, one stage marked ``adam`` then
+    ``stats``), with the render's and the blend's own marks between them
     (``scripts/bench_breakdown.py`` reads them all); given, the step is
     traced (``utils/trace.py``: a ``step`` unit, or a span of the ``train()``
     iteration that runs it)."""
@@ -186,7 +187,10 @@ def make_train_step(mcfg: ModelConfig, ocfg: OptimizationConfig, pcfg: PipelineC
 
             with torch.no_grad():
                 # Adam on the Gaussian groups with the exp-decayed xyz LR
-                # (gaussian_model.py:338-361)
+                # (gaussian_model.py:338-361) and the densification
+                # statistics (train.py:186-188; the screen gradient arrives
+                # in pixel units -> NDC units via (W/2, H/2)): one launch on
+                # a card
                 with trace.span("adam"):
                     lrs = GroupLRs(
                         xyz=expon_lr(it, ocfg.position_lr_init * spatial_lr_scale,
@@ -196,24 +200,15 @@ def make_train_step(mcfg: ModelConfig, ocfg: OptimizationConfig, pcfg: PipelineC
                         f_dc=ocfg.feature_lr, f_rest=ocfg.feature_lr / 20.0,
                         opacity=ocfg.opacity_lr, scaling=ocfg.scaling_lr,
                         rotation=ocfg.rotation_lr)
-                    grads = params.map(lambda x: torch.zeros_like(x) if x.grad is None else x.grad)
-                    g = adam_step(g, grads, lrs)
+                    g = adam_and_stats(g, params.map(lambda x: x.grad), lrs, xy_offset.grad,
+                                       xy_abs.grad, aux["visibility"], aux["radii"],
+                                       (width * 0.5, height * 0.5))
                     app_state = {}
                     if app is not None:
                         app_state = appearance_adam(app, ts.app_m, ts.app_v, it,
                                                    ocfg.appearance_network_lr,
                                                    ocfg.appearance_embeddings_lr)
                     mark(events, "adam")
-
-                # densification statistics (train.py:186-188): the screen
-                # gradient arrives in pixel units -> NDC units via (W/2, H/2)
-                with trace.span("stats"):
-                    with trace.sync("stats.ndc_scale"):  # a copy from pageable host memory
-                        ndc_scale = torch.tensor([width * 0.5, height * 0.5], dtype=torch.float32,
-                                                 device=g.device)
-                    g = gm.add_densification_stats(g, xy_offset.grad * ndc_scale,
-                                                   xy_abs.grad[:, 0], aux["visibility"])
-                    g = gm.update_max_radii(g, aux["radii"], aux["visibility"])
                     mark(events, "stats")
             return ts.replace(gaussians=g, iteration=it, **app_state), {k: aux[k] for k in METRICS}
 

@@ -337,7 +337,7 @@ def test_a_train_step_matches_the_plain_chain(monkeypatch):
     step = loop.make_train_step(ModelConfig(kernel_size=0.1),
                                 OptimizationConfig(regularization_from_iter=0),
                                 PipelineConfig(max_per_tile=256, instance_budget=1 << 16), 1.0)
-    kernel_pair, adam = pp.preprocess_train, optim.adam_step
+    kernel_pair, adam = pp.preprocess_train, optim.adam_and_stats
 
     def run(prepare_fn):
         arrived, grads = {}, []
@@ -353,12 +353,12 @@ def test_a_train_step_matches_the_plain_chain(monkeypatch):
             table.register_hook(keep)
             return prep.replace(table=table)
 
-        def adam_step(st, g, lrs):
+        def adam_and_stats(st, g, lrs, *stats):
             grads.append(g)
-            return adam(st, g, lrs)
+            return adam(st, g, lrs, *stats)
 
         monkeypatch.setattr(pp, "preprocess_train", traced)
-        monkeypatch.setattr(loop, "adam_step", adam_step)
+        monkeypatch.setattr(loop, "adam_and_stats", adam_and_stats)
         ts, metrics = step(loop.init_train_state(state), cam, gt, torch.zeros(3, device=dev),
                            0, W, H)
         torch.cuda.synchronize()

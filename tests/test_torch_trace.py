@@ -39,16 +39,15 @@ STEP_TREE = {"step": None, "view": "step", "preprocess": "view", "binning": "vie
              "binning.depth_sort": "binning", "binning.duplicate": "binning",
              "binning.sort": "binning", "binning.ranges": "binning", "blend_fwd": "view",
              "normalize": "view", "loss": "step", "loss.ssim": "loss", "backward": "step",
-             "blend_bwd": "backward", "adam": "step", "stats": "step"}
+             "blend_bwd": "backward", "adam": "step"}
 # the sync sites a binning crosses on the CPU (the plain path's longest run too)
 BINNING_SITES = {"binning.total": 1, "binning.keep": 2, "binning.max_tile_count": 1}
 VIEW_SITES = {"camera.world_view": 2, **BINNING_SITES}
-STEP_SITES = {**VIEW_SITES, "ssim.taps": 1, "fuse_3d_filter.prod_backward": 1,
-              "stats.ndc_scale": 1}
+STEP_SITES = {**VIEW_SITES, "ssim.taps": 1, "fuse_3d_filter.prod_backward": 1}
 # a step on the card: the preprocess kernels read the camera and differentiate
 # the fused filter without the host (no camera.world_view, no
 # fuse_3d_filter.prod_backward), the kernel binning takes no tile count
-CARD_STEP_SITES = {"binning.total": 1, "binning.keep": 2, "ssim.taps": 1, "stats.ndc_scale": 1}
+CARD_STEP_SITES = {"binning.total": 1, "binning.keep": 2, "ssim.taps": 1}
 
 
 class FakeEvent:
