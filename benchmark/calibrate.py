@@ -5,13 +5,15 @@ the card at the cell's own size:
 
 For each seed, the program's compared numbers from a run of the cell
 (training needs no window: one step of it; serving a short window of
-``--serve-seconds`` at the cell's load, enough for the sampled views).
+``--serve-seconds`` at the cell's load, enough for the sampled views; a
+kind file's job the window of its ``CALIBRATE_SECONDS``).
 For the first ``--control`` seeds also the control's numbers: the
 reference computed with its blend in bfloat16 (the precision below the
 configuration's float32) in the program's place; for training also two
 faults planted in that float32 reference in the program's place (the loss
 over half the image; the colour gradient altered by x1.5 where the blend
-produces it). One JSON line a seed.
+produces it); for a kind file's job what its ``controls`` returns. One
+JSON line a seed.
 """
 
 from __future__ import annotations
@@ -60,16 +62,35 @@ def main(argv=None):
     bench = run.load_json(os.path.join(run.ROOT, "BENCHMARK.json"))
     _, cfg, mix = run.cell_inputs(bench, args.workload)
     device = torch.device("cuda", 0)
-    for i, seed in enumerate(args.seeds):
+    readings(cfg, mix, args.seeds, args.control, args.serve_seconds, device)
+
+
+def readings(cfg, mix, seeds, control, serve_seconds, device):
+    """The record of each seed (printed as it comes, and returned): the
+    program's numbers, and for the first ``control`` seeds the control's
+    and the faults'."""
+    job = jobs.kind(mix["kind"])
+    file_kind = jobs.is_file_kind(job)
+    train = mix["kind"] == "train"
+    if file_kind:
+        run_job, seconds = job.run, job.CALIBRATE_SECONDS
+    else:
+        run_job, seconds = job, 0.0 if train else serve_seconds
+    out = []
+    for i, seed in enumerate(seeds):
         t0 = time.perf_counter()
-        train = mix["kind"] == "train"
-        res = jobs.KINDS[mix["kind"]](cfg, mix, seed, 0.0 if train else args.serve_seconds,
-                                      False, device, time.perf_counter())
+        res = run_job(cfg, mix, seed, seconds, False, device, time.perf_counter())
         rec = {"seed": seed, "program": res["numbers"], "attempted": res["attempted"],
                "failed": res["failed"]}
-        if i < args.control:
+        if i < control:
             check.free_device()
-            if train:
+            if file_kind:
+                ctl = job.controls(cfg, mix, seed, device, res)
+                clash = sorted(set(ctl) & set(rec))
+                if clash:
+                    raise ValueError(f"controls name {', '.join(clash)}, keys of the record")
+                rec.update(ctl)
+            elif train:
                 ref = res["ref"]
                 for name, kw in (("control", {"dtype": torch.bfloat16}),
                                  ("half", {"fault": "half"}), ("altered", {"fault": "altered"})):
@@ -84,7 +105,9 @@ def main(argv=None):
                 rec["control"] = serve_control(cfg, mix, seed, device)
         rec["seconds"] = time.perf_counter() - t0
         print(json.dumps(rec), flush=True)
+        out.append(rec)
         check.free_device()
+    return out
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
-"""The two kinds of job a traffic mix can name (its ``kind``), each with its
-set-up, its measured window, its traced segment and its check. Both start
-from a scene the benchmark makes from the seed (the reference's recipe,
-scales from an exact 3-NN) and hands the same to the program, as a loaded
-scene, and to the reference:
+"""The jobs a traffic mix names by its ``kind``, each with its set-up, its
+measured window, its traced segment and its check. ``kind(name)`` finds
+one: the two of this file (``KINDS``), or a kind file
+``benchmark/kinds/<name>.py`` that a later cell brings (its contract is
+``kind``'s docstring). The two here start from a scene the benchmark makes
+from the seed (the reference's recipe, scales from an exact 3-NN) and hand
+the same to the program, as a loaded scene, and to the reference:
 
 - ``train``: the step of ``make_train_step`` over the configuration's
   views, in a seeded stack of permutations as ``train()`` draws them, with
@@ -23,8 +25,13 @@ compared numbers and, traced, the record the per-layer readers read.
 from __future__ import annotations
 
 import gc
+import importlib.util
 import math
+import os
+import re
+import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -333,3 +340,59 @@ def run_orbit(cfg, mix, seed, seconds, trace, device, t_start):
 
 
 KINDS = {"train": run_train, "orbit": run_orbit}
+
+KIND_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "kinds")
+# what a kind file defines (``kind``)
+KIND_API = ("run", "controls", "tiny", "CALIBRATE_SECONDS")
+_LOADED: dict = {}  # a kind file's path -> its module, loaded once
+
+
+def kind(name: str):
+    """The job of the mix kind ``name``: ``KINDS[name]``, a function, or
+    else the module ``KIND_DIR/<name>.py``, loaded by its path once a
+    process. A kind file defines:
+
+    - ``run(cfg, mix, seed, seconds, trace, device, t_start)``, which
+      returns what ``run_train`` returns: ``metrics``, ``attempted``,
+      ``failed``, ``memory_peak_bytes``, ``numbers``, ``record`` when
+      traced, and optionally ``ref``; a program mark that
+      ``tracing.STAGE_OF`` lacks is declared in the ``stage_of`` it passes
+      to ``tracing.step_stages``;
+    - ``controls(cfg, mix, seed, device, res)``: ``{name: compared
+      numbers}`` of the control (the reference one precision down in the
+      program's place) and of any planted faults, for ``calibrate``;
+      ``res`` is ``run``'s result for the seed;
+    - ``tiny(cfg, mix)``: ``(cfg, mix)`` cut to a size the CPU tests run in
+      seconds;
+    - ``CALIBRATE_SECONDS``: the window ``calibrate`` runs ``run`` with.
+
+    Configuration keys of its own (a densification schedule, say) a kind
+    file reads itself, on top of ``program.configs(cfg)``, and hands the
+    same values to its plain reference. A kind file named as one of ``KINDS`` would never be found, so it
+    raises."""
+    path = os.path.join(KIND_DIR, f"{name}.py")
+    if name in KINDS:
+        if os.path.isfile(path):
+            raise LookupError(f"{path} has the name of the job kind {name!r} of jobs.py")
+        return KINDS[name]
+    if path in _LOADED:
+        return _LOADED[path]
+    if not os.path.isfile(path):
+        raise LookupError(f"no job kind {name!r}: {path} does not exist")
+    mod_name = "benchmark_kind_" + re.sub(r"\W", "_", name)
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    # registered as an import would be: a dataclass in the file looks its
+    # module up there
+    sys.modules[mod_name] = mod
+    spec.loader.exec_module(mod)
+    missing = [a for a in KIND_API if not hasattr(mod, a)]
+    if missing:
+        raise LookupError(f"job kind {path} lacks {', '.join(missing)}")
+    _LOADED[path] = mod
+    return mod
+
+
+def is_file_kind(job) -> bool:
+    """Whether ``kind`` found ``job`` in a kind file (a module), not in ``KINDS``."""
+    return isinstance(job, types.ModuleType)

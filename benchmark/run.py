@@ -5,8 +5,9 @@
 from the root of the checkout, on a machine with a CUDA card. It finds the
 cell in ``BENCHMARK.json``, its configuration (the cell's ``config`` entry's
 ``file``) and its traffic mix (``benchmark/mixes/<traffic>.json``), runs the
-mix's job (``jobs.KINDS[mix["kind"]]``): set-up, a window of ``--seconds``,
-with ``--trace 1`` a profiled segment after it and the per-layer readers
+mix's job (``jobs.kind(mix["kind"])``: one of ``jobs.py`` or a kind file,
+``benchmark/kinds/<kind>.py``): set-up, a window of ``--seconds``, with
+``--trace 1`` a profiled segment after it and the per-layer readers
 (``benchmark/metrics/<metric>.py``); then the comparison with the plain
 reference (``check.py``, limits in ``benchmark/limits/<cell>.json``). The
 compared numbers go to standard error as its last lines; the result is the
@@ -81,7 +82,9 @@ def run_cell(bench, name, cfg, mix, seed, seconds, trace, device, t_start=None):
 
     from benchmark import check, jobs
 
-    job = jobs.KINDS[mix["kind"]]
+    job = jobs.kind(mix["kind"])
+    if jobs.is_file_kind(job):
+        job = job.run
     res = job(cfg, mix, seed, seconds, trace, device,
               T_START if t_start is None else t_start)
     metrics = {}

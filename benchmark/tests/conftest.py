@@ -37,16 +37,19 @@ def bench_all(bench):
 
 
 def tiny(bench, cell):
-    """(cfg, mix) of ``cell`` cut to a size the CPU runs in seconds: the
-    configuration's generator, SH degree, opacity and filters at 48 x 32
-    pixels, 3 views; an orbit of 8 poses. Training keeps 4000 points: the
-    change's norm gap moves by 1 / (2 n) when one of n splats' Adam steps
-    differs (a gate that rounds the other way), 8e-4 at 600 points, above
-    the cells' limits."""
-    n = 4000 if cell.startswith("train") else 600
-    from benchmark import run
+    """(cfg, mix) of ``cell`` cut to a size the CPU runs in seconds: a kind
+    file's cells by its ``tiny``; else the configuration's generator, SH
+    degree, opacity and filters at 48 x 32 pixels, 3 views; an orbit of 8
+    poses. Training keeps 4000 points: the change's norm gap moves by
+    1 / (2 n) when one of n splats' Adam steps differs (a gate that rounds
+    the other way), 8e-4 at 600 points, above the cells' limits."""
+    from benchmark import jobs, run
 
     _, cfg, mix = run.cell_inputs(bench, cell)
+    job = jobs.kind(mix["kind"])
+    if jobs.is_file_kind(job):
+        return job.tiny(cfg, mix)
+    n = 4000 if cell.startswith("train") else 600
     cfg = dict(cfg, points=dict(cfg["points"], n=n), capacity=4096 if n > 1024 else 1024, width=48, height=32,
                views=3, pipeline={"max_per_tile": 64})
     if mix["kind"] == "orbit":

@@ -24,10 +24,13 @@ def loaded_after(code):
 
 def test_harness_loads_no_jax():
     code = "import importlib\n" + "".join(f"importlib.import_module({m!r})\n" for m in HARNESS)
-    code += ("from benchmark import run\nimport os\n"
+    code += ("from benchmark import jobs, run\nimport os\n"
              "for f in os.listdir('benchmark/metrics'):\n"
              "    if f.endswith('.py') and not f.startswith('_'):\n"
-             "        run.reader(f[:-3])\n")
+             "        run.reader(f[:-3])\n"
+             "for f in os.listdir(jobs.KIND_DIR) if os.path.isdir(jobs.KIND_DIR) else []:\n"
+             "    if f.endswith('.py'):\n"
+             "        jobs.kind(f[:-3])\n")
     top = loaded_after(code)
     assert not top & FORBIDDEN
     assert "radegs_torch" in top and "radegs_tpu" not in top

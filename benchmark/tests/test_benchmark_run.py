@@ -27,7 +27,13 @@ def line_of(bench, cell, trace=False, seed=SEED):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_line_schema_and_correct(bench_all, cell):
-    line = line_of(bench_all, cell, trace=cell.endswith("100k"))
+    check_line(bench_all, cell, line_of(bench_all, cell, trace=cell.endswith("100k")))
+
+
+def check_line(bench_all, cell, line):
+    """The line's keys in order, ``correct`` with every number under its
+    limit, and the cell's metrics: its per-layer ones traced, else its
+    end-to-end ones."""
     assert list(line) [:5] == ["correct", "attempted", "failed", "metrics", "device"]
     assert list(line)[-1] == "checks"
     assert line["correct"] is True and line["failed"] == 0 and line["attempted"] >= 1
@@ -77,12 +83,15 @@ def half_loss(monkeypatch):
 
 def altered_gradient(monkeypatch):
     import radegs_torch.ops.rasterize as ras
+    from radegs_torch.core.projection import COLUMNS
 
     real = ras.blend_backward
 
     def altered(*a, **k):
-        g = real(*a, **k)
-        return dict(g, rgb=g["rgb"] * 1.5)
+        # the (P, 26) gradient buffer, its colour columns scaled
+        g = real(*a, **k).clone()
+        g[:, COLUMNS["rgb"]] *= 1.5
+        return g
 
     monkeypatch.setattr(ras, "blend_backward", altered)
 

@@ -41,12 +41,18 @@ STAGE_OF = {
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def step_stages(events) -> dict:
+def step_stages(events, stage_of: dict = STAGE_OF) -> dict:
     """One step's (mark, torch.cuda.Event) list -> ms per stage (summed over
-    its marks). The events must have completed."""
+    its marks). Every mark after the first must be in ``stage_of``: a kind
+    file whose program records marks of its own passes ``{**STAGE_OF,
+    **its_marks}``, and a mark no one declared raises, so that a new mark
+    inside a stage cannot take time out of it unseen. The events must have
+    completed."""
     ms: dict = {}
     for (_, a), (name, b) in zip(events, events[1:]):
-        stage = STAGE_OF[name]
+        if name not in stage_of:
+            raise KeyError(f"mark {name!r} ends no declared stage")
+        stage = stage_of[name]
         ms[stage] = ms.get(stage, 0.0) + a.elapsed_time(b)
     return ms
 
