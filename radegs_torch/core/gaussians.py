@@ -119,9 +119,10 @@ def compute_3d_filter(xyz, cameras):
         distance = torch.where(valid, torch.minimum(distance, zc), distance)
         valid_any = valid_any | valid
         focal_length = torch.maximum(focal_length, focal_x)
-    if bool(valid_any.any()):
-        max_visible = distance[valid_any].max()
-    else:  # nothing visible at all: the 1e5 sentinel
-        max_visible = torch.full((), 1e5, dtype=torch.float32, device=xyz.device)
+    with trace.sync("filter3d.far", 2):  # the test and the boolean index
+        if bool(valid_any.any()):
+            max_visible = distance[valid_any].max()
+        else:  # nothing visible at all: the 1e5 sentinel
+            max_visible = torch.full((), 1e5, dtype=torch.float32, device=xyz.device)
     distance = torch.where(valid_any, distance, max_visible)
     return (distance / focal_length * (0.2 ** 0.5))[:, None]

@@ -409,9 +409,14 @@ def resize_capacity(state: GaussianState, new_capacity: int) -> GaussianState:
     return per_slot(state, lambda x: x[idx])
 
 
-def maybe_grow(state: GaussianState, headroom: float = 0.9) -> GaussianState:
-    """Double the capacity on the host when occupancy reaches ``headroom``."""
-    if int(state.n_active()) < headroom * state.capacity:
+def maybe_grow(state: GaussianState, headroom: float = 0.9,
+               n_active: int | None = None) -> GaussianState:
+    """Double the capacity on the host when occupancy reaches ``headroom``.
+    ``n_active``: the active count when the caller has read it already
+    (else it is read here, a host sync)."""
+    if n_active is None:
+        n_active = int(state.n_active())
+    if n_active < headroom * state.capacity:
         return state
     return resize_capacity(state, 2 * state.capacity)
 

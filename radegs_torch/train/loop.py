@@ -215,10 +215,147 @@ def make_train_step(mcfg: ModelConfig, ocfg: OptimizationConfig, pcfg: PipelineC
     return train_step
 
 
-def densify_step(g: gm.GaussianState, generator, max_grad, min_opacity, extent,
-                 prune_big_ws, percent_dense=0.01):
-    return gm.densify_and_prune(g, generator, max_grad, min_opacity, extent,
-                                percent_dense=percent_dense, prune_big_ws=prune_big_ws)
+# the event's counts, read on the host in one sync and set as the gauges
+# ``densify.<name>`` of the open unit
+DENSIFY_GAUGES = ("cloned", "split", "pruned", "dropped", "active_before", "active")
+MIN_OPACITY = 0.05  # the prune threshold train() passes (train.py:180)
+
+
+def _to_ranks(g: gm.GaussianState, mesh) -> gm.GaussianState:
+    """Canonical full state -> this rank's strided block."""
+    return par.shard_gaussian_state(par.to_strided(g, mesh.world), mesh)
+
+
+def _to_full(g: gm.GaussianState, mesh) -> gm.GaussianState:
+    """Every rank's strided block -> canonical full state."""
+    return par.to_canonical(par.gather_gaussian_state(g, mesh), mesh.world)
+
+
+def densify_event(ts: TrainState, it: int, generator, ocfg: OptimizationConfig,
+                  mcfg: ModelConfig, extent: float, cam_list, events: list | None = None,
+                  mesh=None, draws=None) -> tuple[TrainState, dict | None]:
+    """What ``train()`` does after the step of iteration ``it`` inside the
+    densify window (train.py:178-192): on the densify schedule
+    ``densify_and_prune`` (min opacity 0.05, the world-size prune after
+    the first opacity reset), the 3D filter refresh
+    over ``cam_list``, and ``maybe_grow``; then the opacity reset on its
+    schedule. Returns (ts, counts): ``counts`` the densification's
+    ``DENSIFY_GAUGES`` as ints (None on an iteration without one); outside
+    the window, or off both schedules, ``ts`` is returned as it is.
+
+    Traced (``events``, or a unit already open), the densification is the
+    span ``train.densify`` (a unit of its own when no unit is open) with
+    the children ``densify.prune``, ``densify.filter3d`` and
+    ``densify.grow``, the marks ``densify.prune``, ``densify.filter3d`` and
+    ``densify`` after them, the gauges ``densify.<DENSIFY_GAUGES>`` and
+    ``densify.capacity``, read at the event's one host sync (the count
+    ``maybe_grow`` needs), and the counter ``densify.grows``; the reset
+    marks ``reset_opacity``. ``mesh``: every rank calls with its strided
+    block; the event densifies the gathered canonical state with the same
+    draws on every rank. ``draws``: the three normal samples of
+    ``densify_and_prune`` (default: drawn from ``generator``)."""
+    counts = None
+    if it >= ocfg.densify_until_iter:
+        return ts, counts
+    densify = it > ocfg.densify_from_iter and it % ocfg.densification_interval == 0
+    reset = it % ocfg.opacity_reset_interval == 0 or (
+        mcfg.white_background and it == ocfg.densify_from_iter)
+    if densify:
+        dev = ts.gaussians.device
+        with trace.unit("train.densify", events, dev):
+            with trace.span("densify.prune"):
+                g = ts.gaussians if mesh is None else _to_full(ts.gaussians, mesh)
+                before = g.n_active()
+                g, st = gm.densify_and_prune(
+                    g, generator, ocfg.densify_grad_threshold, MIN_OPACITY, extent,
+                    percent_dense=ocfg.percent_dense,
+                    prune_big_ws=it > ocfg.opacity_reset_interval, draws=draws)
+                mark(events, "densify.prune")
+            if not mcfg.disable_filter3D:
+                with trace.span("densify.filter3d"):
+                    g = gm.update_3d_filter(g, cam_list)
+                    mark(events, "densify.filter3d")
+            with trace.span("densify.grow"):
+                with trace.sync("densify.grow"):
+                    counts = dict(zip(DENSIFY_GAUGES, torch.stack(
+                        [st["n_clone"], st["n_split"], st["n_prune"], st["n_drop"], before,
+                         st["n_active"]]).tolist()))
+                for k, v in counts.items():
+                    trace.gauge("densify", k, v)
+                capacity = g.capacity
+                g = gm.maybe_grow(g, n_active=counts["active"])
+                trace.gauge("densify", "capacity", g.capacity)
+                if g.capacity != capacity:
+                    trace.count("densify", "grows")
+                if mesh is not None:
+                    check_replicas(g, mesh)
+                    g = _to_ranks(g, mesh)
+                mark(events, "densify")
+        ts = ts.replace(gaussians=g)
+    if reset:
+        ts = ts.replace(gaussians=gm.reset_opacity(ts.gaussians))
+        mark(events, "reset_opacity")
+    return ts, counts
+
+
+class Autotune:
+    """The loop's work-buffer autotune as ``train()`` keeps it between
+    steps: the pipeline config, the step ``make_step`` built for it
+    (``step``), the previous step's metrics (read one step late: that step
+    has finished by the time the next is enqueued), the peaks since the
+    last shrink check, and the counters it read last (``read``, None
+    before the second step)."""
+
+    def __init__(self, pcfg: PipelineConfig, make_step):
+        self.pcfg, self.make_step = pcfg, make_step
+        self.step = make_step(pcfg)
+        self.prev = None
+        self.read = None
+        self.window_peak = 0.0
+        self.vis_peak = 0.0
+
+    def after(self, it: int, metrics: dict, capacity: int, mesh=None):
+        """``autotune_pipeline`` against the previous step's counters, on
+        ``capacity`` (a rank's with ``mesh``), with the shrink check every
+        100 iterations; rebuilds ``step`` on a change. Then ``metrics``
+        become the previous step's."""
+        if self.prev is not None:
+            with trace.span("train.autotune"):
+                with trace.sync("train.autotune",
+                                sum(k in self.prev for k in AUTOTUNE_READS)):
+                    prev = {k: float(self.prev.get(k, 0.0)) for k in AUTOTUNE_READS}
+                self.read = prev
+                self.window_peak = max(self.window_peak, prev["n_instances"])
+                self.vis_peak = max(self.vis_peak, prev["n_vis_max"])
+                self.pcfg, changed = autotune_pipeline(
+                    self.pcfg, prev["n_overflow"], prev["tile_overflow"], self.window_peak,
+                    capacity * (1 if mesh is None else mesh.world),
+                    shrink_check=(it % 100 == 0), vis_ovf=prev["n_vis_overflow"],
+                    vis_peak=self.vis_peak, per_shard_cap=0 if mesh is None else capacity)
+                if it % 100 == 0:
+                    self.window_peak = 0.0
+                    self.vis_peak = 0.0
+                if changed:
+                    self.step = self.make_step(self.pcfg)
+        self.prev = metrics
+
+
+def after_step(ts: TrainState, it: int, metrics: dict, tune: Autotune, generator,
+               ocfg: OptimizationConfig, mcfg: ModelConfig, extent: float, cam_list,
+               events: list | None = None, mesh=None,
+               draws=None) -> tuple[TrainState, dict | None]:
+    """What ``train()`` does after the step of iteration ``it`` (its
+    ``metrics``): inside the densify window ``densify_event``, after it the
+    3D filter refresh every 100 iterations; then ``tune.after`` on the
+    capacity that leaves. Returns (ts, counts) as ``densify_event``."""
+    counts = None
+    if it < ocfg.densify_until_iter:
+        ts, counts = densify_event(ts, it, generator, ocfg, mcfg, extent, cam_list, events,
+                                   mesh, draws)
+    elif it % 100 == 0 and not mcfg.disable_filter3D and it < ocfg.iterations - 100:
+        ts = ts.replace(gaussians=gm.update_3d_filter(ts.gaussians, cam_list))
+    tune.after(it, metrics, ts.gaussians.capacity, mesh)
+    return ts, counts
 
 
 class SceneLike(NamedTuple):
@@ -327,8 +464,8 @@ def train(
     the rank's strided block; logged ``n_active`` counts every rank's. All
     views must share one size. Every rank returns the canonical full state.
     ``step_events``: a list that receives, per iteration, the step's list of
-    (stage, torch.cuda.Event) marks, followed by "densify" / "reset_opacity"
-    marks on the iterations that ran them (CUDA only, single-rank).
+    (stage, torch.cuda.Event) marks, followed by ``densify_event``'s marks
+    on the iterations that ran it (CUDA only, single-rank).
     Returns (train_state, history): ``history`` holds the metrics as floats
     at every ``log_every``-th iteration and the last."""
     dev = resolve_device(device)
@@ -353,16 +490,14 @@ def train(
     else:
         ts = ts.replace(gaussians=gm.update_3d_filter(ts.gaussians, cam_list))
 
-    n_dev = 1
     if mesh is None:
         def make_step(pcfg_):
             return make_train_step(mcfg, ocfg, pcfg_, spatial_lr_scale=scene.extent)
     else:
-        n_dev = mesh.world
         W, H = cam_list[0].width, cam_list[0].height
         if any((c.width, c.height) != (W, H) for c in cam_list):
             raise ValueError("multi-rank training needs views of one size")
-        _, _, h_pad = par.band_layout(H, n_dev)
+        _, _, h_pad = par.band_layout(H, mesh.world)
         cameras = [(cam, par.pad_gt(gt, h_pad), vidx) for cam, gt, vidx in cameras]
 
         def make_step(pcfg_):
@@ -374,21 +509,12 @@ def train(
 
             return step
 
-        def to_ranks(g):  # canonical full state -> this rank's strided block
-            return par.shard_gaussian_state(par.to_strided(g, n_dev), mesh)
+        ts = ts.replace(gaussians=_to_ranks(ts.gaussians, mesh))
 
-        def to_full(g):  # every rank's strided block -> canonical full state
-            return par.to_canonical(par.gather_gaussian_state(g, mesh), n_dev)
-
-        ts = ts.replace(gaussians=to_ranks(ts.gaussians))
-
-    step_fn = make_step(pcfg)
+    tune = Autotune(pcfg, make_step)
     rng = np.random.default_rng(seed)
     stack = []
     history = []
-    prev_metrics = None  # overflow is checked every iteration, one step late
-    window_peak = 0.0  # peak n_instances since the last budget-shrink check
-    vis_peak = 0.0  # the worst rank's visible peak, for the gather cap
     for it in range(ts.iteration + 1, ocfg.iterations + 1):
         if it % 1000 == 0:
             ts = ts.replace(gaussians=gm.oneup_sh_degree(ts.gaussians))
@@ -397,29 +523,10 @@ def train(
         cam, gt, vidx = cameras[int(stack.pop())]
         events = [] if step_events is not None else None
         with trace.unit("iteration", events, dev):
-            ts, metrics = step_fn(ts, cam, gt, bg, vidx, cam.width, cam.height, events=events)
-
-            if it < ocfg.densify_until_iter:
-                if it > ocfg.densify_from_iter and it % ocfg.densification_interval == 0:
-                    with trace.span("train.densify"):
-                        g = ts.gaussians if mesh is None else to_full(ts.gaussians)
-                        g2, _ = densify_step(g, generator, ocfg.densify_grad_threshold,
-                                             0.05, scene.extent, it > ocfg.opacity_reset_interval,
-                                             percent_dense=ocfg.percent_dense)
-                        if not mcfg.disable_filter3D:
-                            g2 = gm.update_3d_filter(g2, cam_list)
-                        g2 = gm.maybe_grow(g2)
-                        if mesh is not None:
-                            check_replicas(g2, mesh)
-                            g2 = to_ranks(g2)
-                        ts = ts.replace(gaussians=g2)
-                        mark(events, "densify")
-                if it % ocfg.opacity_reset_interval == 0 or (
-                        mcfg.white_background and it == ocfg.densify_from_iter):
-                    ts = ts.replace(gaussians=gm.reset_opacity(ts.gaussians))
-                    mark(events, "reset_opacity")
-            elif it % 100 == 0 and not mcfg.disable_filter3D and it < ocfg.iterations - 100:
-                ts = ts.replace(gaussians=gm.update_3d_filter(ts.gaussians, cam_list))
+            ts, metrics = tune.step(ts, cam, gt, bg, vidx, cam.width, cam.height,
+                                    events=events)
+            ts, _ = after_step(ts, it, metrics, tune, generator, ocfg, mcfg, scene.extent,
+                               cam_list, events, mesh)
             if events is not None:
                 step_events.append(events)
 
@@ -432,28 +539,6 @@ def train(
                 history.append(m)
             else:
                 m = None
-
-            # autotune the work buffers against the PREVIOUS step's counters:
-            # that step has finished by the time this one is enqueued
-            if prev_metrics is not None:
-                with trace.span("train.autotune"):
-                    with trace.sync("train.autotune",
-                                    sum(k in prev_metrics for k in AUTOTUNE_READS)):
-                        prev = {k: float(prev_metrics.get(k, 0.0)) for k in AUTOTUNE_READS}
-                    window_peak = max(window_peak, prev["n_instances"])
-                    vis_peak = max(vis_peak, prev["n_vis_max"])
-                    cap = ts.gaussians.capacity
-                    pcfg, changed = autotune_pipeline(
-                        pcfg, prev["n_overflow"], prev["tile_overflow"], window_peak,
-                        cap * n_dev, shrink_check=(it % 100 == 0),
-                        vis_ovf=prev["n_vis_overflow"], vis_peak=vis_peak,
-                        per_shard_cap=cap if mesh is not None else 0)
-                    if it % 100 == 0:
-                        window_peak = 0.0
-                        vis_peak = 0.0
-                    if changed:
-                        step_fn = make_step(pcfg)
-        prev_metrics = metrics
         # callbacks run every iteration; m holds floats at log points, else None
         try:
             for cb in callbacks:
@@ -461,7 +546,7 @@ def train(
         except StopTraining:
             break
     if mesh is not None:
-        ts = ts.replace(gaussians=to_full(ts.gaussians))
+        ts = ts.replace(gaussians=_to_full(ts.gaussians, mesh))
     return ts, history
 
 
