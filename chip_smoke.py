@@ -319,6 +319,21 @@ same without the copies after phase 13; its kernels line's ``adam_stats``
 row gives the kernel's launches on the paths of phases 6, 12b and 13
 (``train_launches``, ``parallel_launches``, ``bench_launches``; once an
 iteration, checked in 6 and 12b).
+``python3 chip_smoke.py --binning`` runs only the setup and the binning
+kernels (``csrc/binning.cu`` behind ``ops/binning.bin_gaussians``) at view 0
+of the train cells' scenes (the benchmark's 1.2M view at 1600x1200 and its
+6.1M view, 2^23 rows, at 1237x822): the lists and counters against the
+plain version on the card (the same ints), the count stage (the count
+kernel and its scan) and the list stage (the duplicate kernel, the sort,
+the ranges kernels) alone in CUDA graphs, the sort alone, the whole call
+with its host sync (CUDA events), the plain version's ms a call, and the
+bytes bounds, and the same at the demand sweep's budget (2^24, which cuts
+the 6.1M view). The default run does the same after the Adam kernel; its
+kernels line's ``binning`` row gives the count kernel's launches and the
+views the instance budget cut (``budget_path``, which run the count kernel
+twice) on every path; phases 3-4 and 6 check that every binning ran the
+kernels, and that the served dense views, the dense train steps and the
+iterations that did not overflow were not cut.
 
 Every phase that fails raises, and the script exits non-zero without the
 result lines. The last three lines are the card's name and power limit, a
@@ -1377,6 +1392,7 @@ def serving(workdir):
     log(f"phase 3 scene written in {time.perf_counter() - t0:.1f} s")
     blend.reset_launches()  # the serving path starts here
     pp.reset_launches()
+    binning_launches(reset=True)
     n_plain = trace.counters("preprocess").get("plain", 0)
     torch.cuda.reset_peak_memory_stats()
     state = gm.update_3d_filter(
@@ -1410,12 +1426,17 @@ def serving(workdir):
             need = max(need, int(b.n_instances))
     g = default_g()
     before = blend.LAUNCHES[f"blend_fwd[G={g}]"]
+    dense_bin = binning_launches()  # phase 4's views: their budget cuts nothing
     rowsd, dbudget = serve(state, dcams, 8192, round_budget(need), g, f"dense G={g}")
     results["dense"] = report(f"phase 4 dense 1.2M 1600x1200 G={g}", rowsd, dbudget,
                               blend.LAUNCHES[f"blend_fwd[G={g}]"] - before,
                               torch.cuda.max_memory_allocated())
-    launches = {**dict(blend.LAUNCHES), **dict(pp.LAUNCHES)}  # the serving path ends here
+    launches = {**dict(blend.LAUNCHES), **dict(pp.LAUNCHES),
+                **binning_launches()}  # the serving path ends here
     log(f"serving path kernel launches: {launches}")
+    check_binning_path("the serving path", launches)
+    check_binning_path("phase 4's served views", {k: launches[k] - v for k, v in
+                                                  dense_bin.items()}, cut=0)
     check(all(launches[f"blend_fwd[G={g}]"] > 0 for g in (1, 2)),
           f"a forward kernel never ran on the serving path: {launches}")
     check(pp.LAUNCHES["preprocess_fwd[sh=3,inv=0]"] > 0
@@ -1624,6 +1645,7 @@ def train_step_launches(state, cam, budget):
     step = loop.make_train_step(ModelConfig(kernel_size=0.1), OptimizationConfig(),
                                 PipelineConfig(max_per_tile=8192, instance_budget=budget), 1.0)
     pp.reset_launches()
+    binning_launches(reset=True)
     plain = trace.counters("preprocess").get("plain", 0)
     step(loop.init_train_state(state), cam, gt, torch.zeros(3, device=dev), 0, cam.width,
          cam.height)
@@ -1790,6 +1812,158 @@ def adam_row(res, launches):
             **{f"{path}_launches": d.get("adam_stats", 0) for path, d in launches.items()}}
 
 
+def cell_view(cell, seed=2147483659):
+    """View 0 of a benchmark cell's scene (``benchmark/``: its points, the
+    reference's 3-NN scales, the state as a viewer loads it): its
+    configuration and the view's preprocess on the card."""
+    from benchmark import jobs, program, run
+    from benchmark.reference import scene as rs
+    from radegs_torch.renderer import prepare
+
+    dev = torch.device(DEVICE)
+    _, cfg, _ = run.cell_inputs(run.load_json(os.path.join(ROOT, "BENCHMARK.json")), cell)
+    pts, cols = jobs.scene.points_and_colors(cfg, seed)
+    cams = program.cameras(jobs.scene.view_eyes(cfg), cfg, dev)
+    dist2 = rs.mean_dist2_knn(torch.as_tensor(pts, device=dev))
+    state = program.load_state(cfg, jobs.scene_params(cfg, pts, cols, dev, dist2), cams, dev)
+    with torch.no_grad():
+        prep = prepare(state, cams[0], cfg["kernel_size"])
+    del state
+    return cfg, prep
+
+
+# the least bytes of a binning: a valid row's xy, conic, opacity, depth (7
+# floats), radius and flag read once (33 B), another row's flag alone (1 B);
+# each instance's gauss_id and tile_id written (8 B); each tile's start and
+# count (8 B)
+def binning_bytes(P, V, n, T):
+    return 33 * V + (P - V) + 8 * n + 8 * T
+
+
+# the design's bytes besides: each instance's 12-byte (key, id) pair
+# written by the duplicate kernel, read and written by the sort (keys and
+# their order), read by the ranges pass (48 B more an instance)
+def binning_design_bytes(P, V, n, T):
+    return binning_bytes(P, V, n, T) + 48 * n
+
+
+BINNING_LISTS = ("gauss_id", "tile_id", "tile_start", "tile_count", "n_instances",
+                 "n_overflow", "tile_overflow", "max_tile_count", "n_culled")
+
+
+def same_binning(label, got, want, launches, expected):
+    """The kernels' lists and counters equal the plain version's, from the
+    ``expected`` launches."""
+    diff = [f for f in BINNING_LISTS if not torch.equal(getattr(got, f), getattr(want, f))]
+    log(f"binning at {label} vs the plain version, fields that differ: {diff}; "
+        f"launches {launches}")
+    check(not diff, f"binning at {label}: the kernels' lists differ from the plain "
+          f"version's in {diff}")
+    check(launches == expected, f"binning at {label}: launches {launches}, not {expected}")
+
+
+def check_binning_path(label, launches, cut=None):
+    """Every binning of a path ran the kernels: the duplicate and ranges
+    kernels once a binning, the count kernel once more for each binning
+    the instance budget cut (``budget_path``; ``cut``, where given, how many
+    the budget cut)."""
+    n, dup, rng, bp = (launches[k] for k in ("binning_count", "binning_duplicate",
+                                             "binning_ranges", "budget_path"))
+    check(dup > 0 and dup == rng and n == dup + bp and (cut is None or bp == cut),
+          f"{label}: binning launches {launches}" + ("" if cut is None else f", {cut} cut"))
+
+
+def binning_alone():
+    """The binning kernels at view 0 of the train cells' scenes: against the
+    plain version on the card (the same ints), also under the demand sweep's
+    budget (2^24, which cuts the 6.1M view), the count and list stages alone
+    in CUDA graphs, the sort alone, the whole call with its sync (CUDA
+    events), the plain version's ms a call, and the bytes bounds."""
+    from radegs_torch.core.projection import column
+    from radegs_torch.ops import binning as bn
+
+    res = {}
+    for label, cell, reps in (("1.2M", "train-surface-1.2M", 20),
+                              ("6.1M", "train-surface-6.1M", 10)):
+        cfg, prep = cell_view(cell)
+        t = prep.table
+        view = (column(t, "xy"), prep.radius, column(t, "depth"), prep.valid, cfg["width"],
+                cfg["height"])
+        cuts = dict(conic=column(t, "conic"), opacity=column(t, "opacity"))
+        budget, mpt = bn.budget_cap(cfg["capacity"]), bn.MAX_PER_TILE_CAP
+        fast = {**{k: 1 for k in bn.STAGES}, "budget_path": 0}
+        bn.reset_launches()
+        got = bn.bin_gaussians(*view, budget, mpt, **cuts)
+        launches = binning_launches()
+        want = bn.bin_gaussians_torch(*view, budget, mpt, **cuts)
+        torch.cuda.synchronize()
+        same_binning(f"{label} view 0", got, want, launches, fast)
+        del want
+        # the demand sweep's budget: the 6.1M view's demand passes it
+        sweep = bn.MAX_INSTANCE_BUDGET
+        cut = int(got.n_instances) > sweep
+        bn.reset_launches()
+        got_s = bn.bin_gaussians(*view, sweep, mpt, **cuts)
+        launches = binning_launches()
+        want = bn.bin_gaussians_torch(*view, sweep, mpt, **cuts)
+        torch.cuda.synchronize()
+        same_binning(f"{label} view 0, budget {sweep}", got_s, want, launches,
+                     {**fast, "binning_count": 1 + cut, "budget_path": int(cut)})
+        del want, got_s
+        budget_ms = time_ms(lambda: bn.bin_gaussians(*view, sweep, mpt, **cuts), reps)
+        P, n, T = t.shape[0], got.gauss_id.numel(), got.tile_count.numel()
+        V = int(prep.valid.sum())
+        ps = bn.count_stage(*view, mpt, **cuts)
+        order = torch.sort(got.gauss_id, stable=True).indices  # the kernels' row order
+        keys = ((got.tile_id.long() << 32) | bn._depth_bits(view[2][got.gauss_id.long()]))[order]
+        row = {"P": P, "n": n, "T": T,
+               "count_ms": graph_ms(lambda: bn.count_stage(*view, mpt, **cuts), reps),
+               "list_ms": graph_ms(lambda: bn.list_stage(ps, n), reps),
+               "sort_ms": graph_ms(lambda: torch.sort(keys, stable=True), reps),
+               "call_ms": time_ms(lambda: bn.bin_gaussians(*view, budget, mpt, **cuts), reps),
+               "plain_ms": time_ms(lambda: bn.bin_gaussians_torch(*view, budget, mpt, **cuts),
+                                   3),
+               "budget_ms": budget_ms, "budget_cut": cut,
+               "bound": binning_bytes(P, V, n, T) / PEAK_BYTES * 1e3,
+               "design_bound": binning_design_bytes(P, V, n, T) / PEAK_BYTES * 1e3}
+        log(f"binning at {label} view 0 ({P} rows, {V} valid, {n} instances, {T} tiles): "
+            f"count stage {row['count_ms']:.4f} ms, list stage {row['list_ms']:.4f} ms (the "
+            f"sort alone {row['sort_ms']:.4f}), CUDA graphs of {reps}; a whole call with its "
+            f"sync {row['call_ms']:.4f} ms; at budget {sweep} ({'cut' if cut else 'no cut'}) "
+            f"{budget_ms:.4f} ms; plain version {row['plain_ms']:.3f} ms; least-bytes bound "
+            f"{row['bound']:.4f} ms ({binning_bytes(P, V, n, T)} B), with the design's sort "
+            f"traffic {row['design_bound']:.4f} ms ({binning_design_bytes(P, V, n, T)} B)")
+        res[label] = row
+        del got, ps, order, keys, prep, t, view, cuts
+        torch.cuda.empty_cache()
+    return res
+
+
+def binning_row(res, launches):
+    """The kernels-list row of the binning kernels; ``launches`` maps a path
+    to its launch counts, of which the count kernel's (one a binning on the
+    kernels' path) and ``budget_path`` are read."""
+    return {"name": "binning", "route": "cuda", "source": "radegs_torch/csrc/binning.cu",
+            "replaces": "none (radegs_tpu/ops/binning.py is XLA)", "same_bits": True,
+            **{f"{k}_{label}": row[k] for label, row in res.items()
+               for k in ("count_ms", "list_ms", "sort_ms", "call_ms", "plain_ms", "budget_ms",
+                         "bound", "design_bound")},
+            "bound_by": "bytes", "library_ms": None,
+            **{f"{path}_launches": d.get("binning_count", 0) for path, d in launches.items()},
+            **{f"{path}_budget_path": d.get("budget_path", 0) for path, d in launches.items()}}
+
+
+def binning_launches(reset=False):
+    """The binning kernels' launch counts and ``budget_path`` so far; with
+    ``reset``, set to 0 after the read."""
+    from radegs_torch.ops import binning as bn
+
+    out = {**dict(bn.LAUNCHES), **dict(bn.BUDGET_PATH)}
+    if reset:
+        bn.reset_launches()
+    return out
+
+
 def preprocess_only(workdir):
     """``--preprocess``: phases 3-4 (the serving path) with the preprocess
     kernel at the dense view 0, phase 7a and phase 7b."""
@@ -1799,16 +1973,19 @@ def preprocess_only(workdir):
 
     res = serving(workdir)
     pp.reset_launches()
+    binning_launches(reset=True)
     parity = [integrate_parity(), integrate_parity(250, 190, (1.6, 0, 0))]
     n_7a = pp.LAUNCHES["preprocess_fwd[sh=0,inv=1]"]
     check(n_7a == 2, f"7a: the preprocess kernel ran {n_7a} times for 2 parity scenes")
     ig.reset_launches()  # the TSDF path starts here
     blend.reset_launches()
     pp.reset_launches()
+    binning_launches(reset=True)
     views = mesh_views()
     state = load_scene(res["dpath"], res["dcap"], views)
     train_launches = train_step_launches(state, views[0][0], res["dbudget"])
     pp.reset_launches()
+    binning_launches(reset=True)
     _, verts, _ = mesh_tsdf(state, views, workdir, "7b TSDF of the dense 1.2M scene")
     mesh_geometry(verts, "7b TSDF")
     n_pre = pp.LAUNCHES["preprocess_fwd[sh=3,inv=0]"]
@@ -1905,6 +2082,7 @@ def train_100k(path, cap, cams, budget):
     # ---- the training path starts here ----
     blend.reset_launches()
     pp.reset_launches()
+    binning_launches(reset=True)
     optim.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     step_events, host = [], []
@@ -1946,6 +2124,8 @@ def train_100k(path, cap, cams, budget):
     check(hist[-1]["n_active"] > 0, "training ended with no Gaussian")
     check(all(h["n_overflow"] == 0 for h in hist[-20:]),
           f"instance overflow after the autotune settled: {overflowed}")
+    # a step bins once; the iterations that overflowed were cut by the kernels
+    check_binning_path("phase 6's iterations", binning_launches(), cut=len(overflowed))
     g = default_g()
     check(launches_100[f"blend_bwd[G={g}]"] == TRAIN_ITERS,
           f"blend_bwd[G={g}] launched {launches_100[f'blend_bwd[G={g}]']}x in {TRAIN_ITERS} "
@@ -1989,6 +2169,7 @@ def training(res):
     del dstate
     torch.cuda.reset_peak_memory_stats()
     drows = []
+    dense_bin = binning_launches()
     for g in (2, 2, 1, 1):
         step = make_train_step(mcfg, ocfg, replace(pcfg, max_per_tile=8192, tiles_per_block=g,
                                                    instance_budget=dbudget),
@@ -2006,6 +2187,9 @@ def training(res):
     launches = dict(blend.LAUNCHES)  # the training path ends here
     pre_launches = dict(pp.LAUNCHES)
     adam_launches = dict(optim.LAUNCHES)
+    bin_launches = binning_launches()
+    check_binning_path("phase 6's dense steps", {k: bin_launches[k] - v for k, v in
+                                                 dense_bin.items()}, cut=0)
     for g, wall, stages, n in drows:
         log(f"phase 6 dense train step G={g}: {wall:.3f} ms (host clock), "
             + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f" ms; {n} instances")
@@ -2017,7 +2201,7 @@ def training(res):
     check(adam_launches["adam_stats"] == TRAIN_ITERS + len(drows),
           f"the training path launched adam_stats {adam_launches} times, not once a step")
     results.update(launches=launches, pre_launches=pre_launches, adam_launches=adam_launches,
-                   dense_rows=drows, dense_peak=dpeak)
+                   binning_launches=bin_launches, dense_rows=drows, dense_peak=dpeak)
     return results
 
 
@@ -2747,6 +2931,7 @@ def mesh_path(res, workdir):
     ig.reset_launches()  # the mesh path starts here
     blend.reset_launches()
     pp.reset_launches()
+    binning_launches(reset=True)
     views = mesh_views()
     state = load_scene(res["dpath"], res["dcap"], views)
     tsdf, verts, _ = mesh_tsdf(state, views, workdir, "7b TSDF of the dense 1.2M scene")
@@ -2761,7 +2946,8 @@ def mesh_path(res, workdir):
     torch.cuda.empty_cache()
     witness = mesh_witness(workdir)
     # the mesh path ends here
-    launches = {**dict(ig.LAUNCHES), **dict(blend.LAUNCHES), **dict(pp.LAUNCHES)}
+    launches = {**dict(ig.LAUNCHES), **dict(blend.LAUNCHES), **dict(pp.LAUNCHES),
+                **binning_launches()}
     log(f"mesh path kernel launches: {launches}")
     check(all(ig.LAUNCHES[k] > 0 for k in ig.LAUNCHES), f"an integrate kernel never ran on "
           f"the mesh path: {launches}")
@@ -2929,6 +3115,7 @@ def entry_points(workdir, tr_res):
     blend.reset_launches()
     ig.reset_launches()
     pp.reset_launches()
+    binning_launches(reset=True)
     m1, m2, m3 = (os.path.join(workdir, m) for m in ("m1", "m2", "m3"))
     (ts, hist, tpsnr), walls["train"], text = run_cli(train_cli, [
         "-s", ds, "-m", m1, "--eval", "--iterations", str(CLI_ITERS), "--test_iterations", "1",
@@ -3012,7 +3199,8 @@ def entry_points(workdir, tr_res):
                                           "mesh_extract_tetrahedra")
     d_tetra = float(np.median(surface_distance(tv, band)[0]))
     # the phase 8 path ends here
-    launches = {**dict(blend.LAUNCHES), **dict(ig.LAUNCHES), **dict(pp.LAUNCHES)}
+    launches = {**dict(blend.LAUNCHES), **dict(ig.LAUNCHES), **dict(pp.LAUNCHES),
+                **binning_launches()}
     log(f"phase 8 meshes: TSDF {walls['tsdf']:.3f} s, {len(verts)} vertices, {len(faces)} "
         f"faces, median distance {d_tsdf:.5f}; tetra {walls['tetra']:.3f} s, {len(tv)} "
         f"vertices, {len(tf)} faces, median distance {d_tetra:.5f} (to the sphere / plane "
@@ -3419,11 +3607,13 @@ def evaluation(ep):
     blend.reset_launches()
     ig.reset_launches()
     pp.reset_launches()
+    binning_launches(reset=True)
     eval_metrics(ep["m1"], ep["tpsnr"], eval_lpips(ep["workdir"], ep["m1"]))
     eval_meshes(ep)
     eval_viewer(ep)
     # the phase 10 path ends here
-    launches = {**dict(blend.LAUNCHES), **dict(ig.LAUNCHES), **dict(pp.LAUNCHES)}
+    launches = {**dict(blend.LAUNCHES), **dict(ig.LAUNCHES), **dict(pp.LAUNCHES),
+                **binning_launches()}
     g = default_g()
     log(f"phase 10 kernel launches: {launches}; {time.perf_counter() - t0:.1f} s in all")
     check(launches[f"blend_fwd[G={g}]"] > 0 and launches[f"blend_bwd[G={g}]"] > 0,
@@ -3791,10 +3981,12 @@ def quality_cut(workdir):
     blend.reset_launches()  # the quality path starts here
     ig.reset_launches()
     pp.reset_launches()
+    binning_launches(reset=True)
     rep = quality_dense.main([*QUALITY_CUT, "--report", os.path.join(workdir, "quality.json")],
                              step_events=step_events)
     # the quality path ends here
-    launches = {**dict(blend.LAUNCHES), **dict(ig.LAUNCHES), **dict(pp.LAUNCHES)}
+    launches = {**dict(blend.LAUNCHES), **dict(ig.LAUNCHES), **dict(pp.LAUNCHES),
+                **binning_launches()}
     wall = time.perf_counter() - t0
     ev, h = rep["eval"], rep["health"]
     stages, _ = stage_medians(step_events)
@@ -4217,6 +4409,7 @@ def rank_phase12(mesh, saved, pcfg):
     stamps = []
     blend.reset_launches()  # the multi-rank training path starts here
     pp.reset_launches()
+    binning_launches(reset=True)
     optim.reset_launches()
     t0 = time.perf_counter()
     ts, hist = train(scene, g0, *parallel_configs(pcfg), seed=0, log_every=1, mesh=mesh,
@@ -4224,7 +4417,7 @@ def rank_phase12(mesh, saved, pcfg):
                      callbacks=[lambda it, ts, m: stamps.append(time.perf_counter())])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**dict(blend.LAUNCHES), **dict(pp.LAUNCHES),
+    launches = {**dict(blend.LAUNCHES), **dict(pp.LAUNCHES), **binning_launches(),
                 **dict(optim.LAUNCHES)}  # ... and ends here
     finite = all(bool(torch.isfinite(p).all()) for _, p in ts.gaussians.params.items())
     return dict(step=met, gate=gate, step_launches=step_launches, band=band,
@@ -4453,10 +4646,11 @@ def bench_phase():
     # ---- the bench path starts here ----
     blend.reset_launches()
     pp.reset_launches()
+    binning_launches(reset=True)
     optim.reset_launches()
     details = {}
     rec = bench.main(["--scene", "both"], details=details)
-    launches = {**dict(blend.LAUNCHES), **dict(pp.LAUNCHES),
+    launches = {**dict(blend.LAUNCHES), **dict(pp.LAUNCHES), **binning_launches(),
                 **dict(optim.LAUNCHES)}  # the bench path ends here
     t_bench = time.perf_counter() - t0
     log(f"phase 13 bench: {json.dumps(rec)}")
@@ -4549,6 +4743,12 @@ def main():
         print(smi)
         print(json.dumps({"kernels": [adam_row(res, {})]}))
         return
+    if sys.argv[1:] == ["--binning"]:
+        res = binning_alone()
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        print(json.dumps({"kernels": [binning_row(res, {})]}))
+        return
     if sys.argv[1:] == ["--tetra"]:
         with tempfile.TemporaryDirectory(dir=workdir) as tmp:
             tetra_only(tmp)
@@ -4596,6 +4796,7 @@ def main():
         par12 = parallel_training(tmp, res)
     bench13 = bench_phase()
     adam = adam_alone()
+    binned = binning_alone()
     kernels = []
     fwd = res["bwd"]["a"]["fwd"]
     for g, replaces in ((1, "radegs_tpu/ops/pallas_blend.py:263"),
@@ -4661,6 +4862,10 @@ def main():
         k["quality_launches"] = qual["launches"].get(k["name"], 0)
         k["parallel_launches"] = par12["launches"].get(k["name"], 0)
         k["bench_launches"] = bench13["launches"].get(k["name"], 0)
+    kernels.append(binning_row(binned, {
+        "serve": res["launches"], "train": tr["binning_launches"], "mesh": mesh["launches"],
+        "cli": ep["launches"], "eval": ev, "quality": qual["launches"],
+        "parallel": par12["launches"], "bench": bench13["launches"]}))
     pre_names = [k for k in res["launches"] if k.startswith("preprocess_")]
     log("preprocess kernel launches by path (every SH degree): " + "; ".join(
         f"{path} " + ", ".join(f"{k} {d[k]}" for k in pre_names if d[k])

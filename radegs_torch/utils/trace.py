@@ -22,7 +22,10 @@ run ends (``summary``).
   ``launches.bisect``, the modules' ``LAUNCHES``), ``native.builds`` (nvcc
   builds by library), ``native`` (``build_s``: wall seconds of builds that
   ran nvcc), ``render`` (``pass``: binning-and-blend passes of ``render``'s
-  grow loop). ``count`` adds to the registry and to the open unit.
+  grow loop), ``binning`` (``budget_path``: a card's views whose demand
+  passed the instance budget, cut by the kernels at a second sync,
+  ``binning.budget``). ``count`` adds to the registry and to the open
+  unit.
 - **Gauges** are readings of a unit, not events: ``gauge`` sets the open
   unit's ``<group>.<name>`` (the last reading stands), and nothing outside a
   unit. The binning reads ``binning.instances`` (the view's instance demand

@@ -46,8 +46,9 @@ VIEW_SITES = {"camera.world_view": 2, **BINNING_SITES}
 STEP_SITES = {**VIEW_SITES, "ssim.taps": 1, "fuse_3d_filter.prod_backward": 1}
 # a step on the card: the preprocess kernels read the camera and differentiate
 # the fused filter without the host (no camera.world_view, no
-# fuse_3d_filter.prod_backward), the kernel binning takes no tile count
-CARD_STEP_SITES = {"binning.total": 1, "binning.keep": 2, "ssim.taps": 1}
+# fuse_3d_filter.prod_backward), the binning kernels read their totals once
+# and take no tile count
+CARD_STEP_SITES = {"binning.total": 1, "ssim.taps": 1}
 
 
 class FakeEvent:
