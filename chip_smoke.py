@@ -1203,7 +1203,7 @@ def tf32_witness():
     gen = torch.Generator(device=DEVICE).manual_seed(21)
     a = torch.rand((3, HEIGHT, WIDTH), generator=gen, device=DEVICE)
     b = (a + 0.1 * torch.randn(a.shape, generator=gen, device=DEVICE)).clamp(0, 1)
-    net, app = appearance.init_appearance(gen)
+    _, app = appearance.init_appearance(gen)
 
     def plain_conv(x, weight, bias=None, padding=(0, 0), groups=1):
         return F.conv2d(x, weight, bias, padding=padding, groups=groups)
@@ -1215,7 +1215,7 @@ def tf32_witness():
         params = {"net": {k: v.to(dtype).clone().requires_grad_(True)
                           for k, v in app["net"].items()},
                   "embeddings": app["embeddings"].to(dtype)}
-        out, _ = appearance.appearance_transform(net, params, a.to(dtype), 3)
+        out, _ = appearance.appearance_transform(params, a.to(dtype), 3)
         out.square().sum().backward()
         return s.item(), x.grad, out, torch.cat([v.grad.flatten()
                                                  for v in params["net"].values()])

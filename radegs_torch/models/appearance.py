@@ -98,15 +98,18 @@ class AppearanceNetwork(nn.Module):
         return torch.sigmoid(self.conv_out(x))
 
 
+# the network every caller applies (it holds no state of its own)
+NETWORK = AppearanceNetwork()
+
+
 def init_appearance(generator: torch.Generator, height: int = 0, width: int = 0):
-    """(net, app_params) on the generator's device: conv weights from flax's
-    lecun_normal distribution (not its values), zero biases, embeddings
-    N(0, 1e-4^2). ``height`` / ``width`` are the JAX signature's (flax sizes
-    nothing by them)."""
-    net = AppearanceNetwork()
+    """(``NETWORK``, app_params) on the generator's device: conv weights from
+    flax's lecun_normal distribution (not its values), zero biases,
+    embeddings N(0, 1e-4^2). ``height`` / ``width`` are the JAX signature's
+    (flax sizes nothing by them)."""
     dev = generator.device
     params = {}
-    for name, p in net.named_parameters():
+    for name, p in NETWORK.named_parameters():
         if name.endswith("bias"):
             params[name] = torch.zeros(p.shape, device=dev)
         else:
@@ -115,7 +118,7 @@ def init_appearance(generator: torch.Generator, height: int = 0, width: int = 0)
             params[name] = nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                                  generator=generator)
     emb = torch.randn((NUM_EMBEDDINGS, EMBED_DIM), generator=generator, device=dev) * 1e-4
-    return net, {"net": params, "embeddings": emb}
+    return NETWORK, {"net": params, "embeddings": emb}
 
 
 def appearance_from_arrays(flax_params, embeddings, device=None):
@@ -142,11 +145,14 @@ def appearance_from_arrays(flax_params, embeddings, device=None):
     return {"net": net, "embeddings": f32(embeddings)}
 
 
-def appearance_transform(net, app_params, image, view_idx):
+def appearance_transform(app_params, image, view_idx, hooks=None):
     """The image path of L1_loss_appearance (train.py:37-58): centre-crop to
     a multiple of 32, downsample x32, concatenate the view's embedding, run
-    the CNN and multiply the crop. ``image`` (3, H, W). Returns
-    (transformed (3, Hc, Wc), (top, left, Hc, Wc))."""
+    the CNN and multiply the crop. ``image`` (3, H, W). ``hooks``: None, or
+    a pair of gradient hooks registered on the multiplier and on the crop,
+    whose gradient is whole once the multiply's and the downsample's
+    backward have run: the first and last gradients of this path's
+    backward. Returns (transformed (3, Hc, Wc), (top, left, Hc, Wc))."""
     _, H, W = image.shape
     Hc, Wc = H // 32 * 32, W // 32 * 32
     top, left = H // 2 - Hc // 2, W // 2 - Wc // 2
@@ -155,5 +161,8 @@ def appearance_transform(net, app_params, image, view_idx):
                          antialias=True, align_corners=False)
     emb = app_params["embeddings"][view_idx]
     emb_map = emb[None, :, None, None].expand(1, emb.shape[0], Hc // 32, Wc // 32)
-    mult = functional_call(net, app_params["net"], (torch.cat([down, emb_map], dim=1),))
+    mult = functional_call(NETWORK, app_params["net"], (torch.cat([down, emb_map], dim=1),))
+    if hooks is not None and mult.requires_grad and crop.requires_grad:
+        mult.register_hook(hooks[0])
+        crop.register_hook(hooks[1])
     return mult[0] * crop, (top, left, Hc, Wc)

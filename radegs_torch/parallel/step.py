@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from radegs_torch.core.geometry import depths_to_points, points_to_normal
 from radegs_torch.core.projection import COLUMNS, N_FEAT, PreprocessOut
-from radegs_torch.models.appearance import AppearanceNetwork, appearance_transform
+from radegs_torch.models.appearance import appearance_transform
 from radegs_torch.ops.binning import TILE, default_instance_budget
 from radegs_torch.ops.rasterize import rasterize
 from radegs_torch.ops.ssim import l1_loss, ssim_map
@@ -143,7 +143,6 @@ def make_sharded_train_step(mcfg, ocfg, pcfg, spatial_lr_scale: float, mesh: Mes
     ndc_scale = (width * 0.5, height * 0.5)
     npix, hw = 3.0 * height * width, float(height * width)
     masked = MASKED.to(dev)
-    net = AppearanceNetwork()
 
     def step(ts, camera, gt_padded, bg, view_idx=0):
         g = ts.gaussians
@@ -188,8 +187,7 @@ def make_sharded_train_step(mcfg, ocfg, pcfg, spatial_lr_scale: float, mesh: Mes
             # every rank, count it once
             img_full = all_gather_rows(img.transpose(0, 1).contiguous(), mesh)
             img_full = img_full.transpose(0, 1)[:, :height]
-            transformed, (top, left, hc, wc) = appearance_transform(net, app, img_full,
-                                                                    view_idx)
+            transformed, (top, left, hc, wc) = appearance_transform(app, img_full, view_idx)
             l1 = l1_loss(transformed, gt_padded[:, top:top + hc, left:left + wc]) / n
         else:
             l1 = torch.sum(torch.abs(img - gt_m)) / npix

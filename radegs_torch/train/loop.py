@@ -24,11 +24,7 @@ import torch
 from radegs_torch import parallel as par
 from radegs_torch.core.geometry import depth_double_to_normal, point_double_to_normal
 from radegs_torch.models import gaussian_model as gm
-from radegs_torch.models.appearance import (
-    AppearanceNetwork,
-    appearance_transform,
-    init_appearance,
-)
+from radegs_torch.models.appearance import appearance_transform, init_appearance
 from radegs_torch.ops.binning import (
     BUDGET_SEG,
     MAX_PER_TILE_CAP,
@@ -100,7 +96,15 @@ def compute_loss(gaussians: gm.GaussianState, app_params, xy_offset, xy_abs, cam
     """The loss of train.py:124-162: L1 + D-SSIM, plus the depth-normal
     consistency term from ``regularization_from_iter`` on. With decoupled
     appearance the L1 term compares the transformed centre crop with the gt
-    crop; SSIM and PSNR stay on the raw image. Returns (loss, aux)."""
+    crop; SSIM and PSNR stay on the raw image. Returns (loss, aux).
+
+    Traced, the appearance forward is the span ``loss.appearance`` with the
+    gauge ``appearance.pixels`` (the crop's) and the mark ``appearance`` at
+    its end; with ``events`` its backward is bracketed by the marks
+    ``appearance.bwd_start`` (the multiplier's gradient) and
+    ``appearance.bwd`` (the crop's, whole after the network's and the
+    downsample's backward), recorded by tensor hooks on the autograd
+    thread."""
     out = render(gaussians, camera, bg, kernel_size=mcfg.kernel_size,
                  max_per_tile=pcfg.max_per_tile,
                  instance_budget=instance_budget(pcfg, gaussians.capacity),
@@ -110,8 +114,14 @@ def compute_loss(gaussians: gm.GaussianState, app_params, xy_offset, xy_abs, cam
     with trace.span("loss"):
         image = out["render"]
         if mcfg.use_decoupled_appearance and app_params is not None:
-            transformed, (top, left, Hc, Wc) = appearance_transform(
-                AppearanceNetwork(), app_params, image, view_idx)
+            with trace.span("loss.appearance"):
+                hooks = None if events is None else (
+                    lambda g: mark(events, "appearance.bwd_start"),
+                    lambda g: mark(events, "appearance.bwd"))
+                transformed, (top, left, Hc, Wc) = appearance_transform(
+                    app_params, image, view_idx, hooks)
+                trace.gauge("appearance", "pixels", Hc * Wc)
+                mark(events, "appearance")
             ll1 = l1_loss(transformed, gt_image[:, top:top + Hc, left:left + Wc])
         else:
             ll1 = l1_loss(image, gt_image)
@@ -163,7 +173,9 @@ def make_train_step(mcfg: ModelConfig, ocfg: OptimizationConfig, pcfg: PipelineC
     ``events``: a list that receives (stage, torch.cuda.Event) at the start
     and after the render, loss and backward stages and after Adam and the
     statistics (``adam_and_stats``, one stage marked ``adam`` then
-    ``stats``), with the render's and the blend's own marks between them
+    ``stats``; with decoupled appearance then its Adam, the span and mark
+    ``adam.appearance``, and ``compute_loss``'s appearance marks), with the
+    render's and the blend's own marks between them
     (``scripts/bench_breakdown.py`` reads them all); given, the step is
     traced (``utils/trace.py``: a ``step`` unit, or a span of the ``train()``
     iteration that runs it)."""
@@ -203,13 +215,15 @@ def make_train_step(mcfg: ModelConfig, ocfg: OptimizationConfig, pcfg: PipelineC
                     g = adam_and_stats(g, params.map(lambda x: x.grad), lrs, xy_offset.grad,
                                        xy_abs.grad, aux["visibility"], aux["radii"],
                                        (width * 0.5, height * 0.5))
-                    app_state = {}
-                    if app is not None:
-                        app_state = appearance_adam(app, ts.app_m, ts.app_v, it,
-                                                   ocfg.appearance_network_lr,
-                                                   ocfg.appearance_embeddings_lr)
                     mark(events, "adam")
                     mark(events, "stats")
+                    app_state = {}
+                    if app is not None:
+                        with trace.span("adam.appearance"):
+                            app_state = appearance_adam(app, ts.app_m, ts.app_v, it,
+                                                       ocfg.appearance_network_lr,
+                                                       ocfg.appearance_embeddings_lr)
+                            mark(events, "adam.appearance")
             return ts.replace(gaussians=g, iteration=it, **app_state), {k: aux[k] for k in METRICS}
 
     return train_step

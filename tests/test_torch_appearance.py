@@ -72,7 +72,7 @@ def test_appearance_transform_matches_jax(jax_app, size, view):
     tp = ta.appearance_from_arrays(p["net"], p["embeddings"], device="cpu")
     img = np.random.default_rng(view).uniform(size=size).astype(np.float32)
     jt, jbox = ja.appearance_transform(net, params, jnp.asarray(img), view)
-    tt, tbox = ta.appearance_transform(ta.AppearanceNetwork(), tp, torch.from_numpy(img), view)
+    tt, tbox = ta.appearance_transform(tp, torch.from_numpy(img), view)
     assert tuple(jbox) == tbox
     close(jt, tt, 0, 1e-6)
     # the downsample alone: jax.image.resize "linear" antialiases

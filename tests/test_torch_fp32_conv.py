@@ -50,13 +50,13 @@ def ssim_and_grad(a, b, dtype, device):
 def appearance_and_grads(dtype, device):
     """The appearance transform of a seeded image (view 3), its input
     gradient and its network parameters' gradients under seeded weights."""
-    net, app = init_appearance(torch.Generator().manual_seed(0))
+    _, app = init_appearance(torch.Generator().manual_seed(0))
     params = {"net": {k: v.to(device, dtype).requires_grad_(True)
                       for k, v in app["net"].items()},
               "embeddings": app["embeddings"].to(device, dtype)}
     img = np.random.default_rng(1).uniform(size=(3, 96, 128))
     x = torch.tensor(img, dtype=dtype, device=device, requires_grad=True)
-    out, _ = appearance_transform(net, params, x, 3)
+    out, _ = appearance_transform(params, x, 3)
     w = np.random.default_rng(2).normal(size=tuple(out.shape))
     (out * torch.tensor(w, dtype=dtype, device=device)).sum().backward()
     return (out.detach().cpu().numpy(), x.grad.cpu().numpy(),
